@@ -1,6 +1,6 @@
 """Command-line interface: the app/lifecycle layer.
 
-TPU-native replacement for the reference's `app::run` + compile-time config
+Counterpart of the reference's `app::run` + compile-time config
 (`/root/reference/src/app.cpp:30-45`, `/root/reference/src/macro.h:7-27`).
 Where the reference hardcodes the model path, prompt token ids, context
 length, and device selection as `#define`s and recompiles to change them,
@@ -41,10 +41,9 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="int8-quantize the KV-cache")
     p.add_argument("--paged", action="store_true",
                    help="use the paged KV-cache (block tables)")
-    p.add_argument("--page-size", type=int, default=None,
-                   help="paged KV page length (default: geometry-aware — 64, "
-                   "or 256 for MQA long-context; each kernel grid step DMAs "
-                   "one page)")
+    p.add_argument("--page-size", type=int, default=64,
+                   help="paged KV page length: a power of two >= 16 (one "
+                   "page is one block of the decode kernel)")
     p.add_argument("--profile", action="store_true",
                    help="print the op-span/roofline report at exit "
                    "(reference: print_profiling_result, app.cpp:42)")
@@ -420,7 +419,7 @@ def cmd_perplexity(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gemma_tpu",
-        description="TPU-native quantized Gemma inference engine",
+        description="Quantized Gemma inference engine",
     )
     sub = ap.add_subparsers(dest="command", required=True)
 

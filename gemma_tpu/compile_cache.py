@@ -1,48 +1,34 @@
 """Shared persistent-compile-cache setup.
 
-Mosaic/XLA TPU compiles go through a remote helper that can take minutes;
-the persistent cache makes reruns warm. One helper so the CLI, bench.py,
-the driver entry and the tools/ scripts all share ONE cache location and
-the same source-location-independent keys (Mosaic payloads embed MLIR
-source locations incl. caller tracebacks; without
+One helper so the CLI, bench.py, chip_smoke.py and the tools/ scripts share
+one cache location and the same source-location-independent keys (kernel
+payloads embed source locations incl. caller tracebacks; without
 `jax_traceback_in_locations_limit=0`, editing ANY file in the call stack —
 even a comment — changes the cache key and forces a full recompile).
 
-Location precedence: $GEMMA_TPU_CACHE_DIR, then $JAX_CACHE_DIR, then
-`<repo>/.jax_cache` (repo-local so the cache survives /tmp wipes).
+Location: when $JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and
+no directory is set here; otherwise `<repo>/.jax_cache`, a fixed path (the
+path is part of the cache key, so a directory that moves never hits).
 """
 from __future__ import annotations
 
-import logging
 import os
 
-_REPO_DEFAULT = os.path.join(
+REPO_CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
 )
 
 
 def cache_dir() -> str:
-    return (
-        os.environ.get("GEMMA_TPU_CACHE_DIR")
-        or os.environ.get("JAX_CACHE_DIR")
-        or _REPO_DEFAULT
-    )
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
 
 
 def setup_compile_cache() -> None:
-    """Idempotent; call before the first jit. Safe after backend init (the
-    flags are plain config values), but warns if a flag no longer exists."""
+    """Idempotent; call before the first jit."""
     import jax
 
-    for flag, value in (
-        ("jax_compilation_cache_dir", cache_dir()),
-        ("jax_persistent_cache_min_compile_time_secs", 0.5),
-        ("jax_traceback_in_locations_limit", 0),
-    ):
-        try:
-            jax.config.update(flag, value)
-        except Exception as e:  # flag renamed/removed in a future JAX
-            logging.getLogger(__name__).warning(
-                "compile-cache flag %s=%r failed (%s): expect slow recompiles",
-                flag, value, e,
-            )
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(REPO_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_traceback_in_locations_limit", 0)

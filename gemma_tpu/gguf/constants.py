@@ -3,7 +3,7 @@
 This module re-specifies (from the public GGUF/ggml spec) the on-disk format
 that the reference engine consumes through its vendored ggml library
 (`/root/reference/src/gemma_model.cpp:24` `gguf_init_from_file`). The
-reference gets all of this for free from ggml; the TPU framework owns it
+reference gets all of this for free from ggml; this framework owns it
 natively.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ reference relies on (`/root/reference/src/gemma_model.cpp:24-157,596-648`).
 Unlike the reference — which eagerly materializes every tensor into a ggml
 context (`no_alloc=false`) — tensor payloads here stay memory-mapped and are
 only touched when a consumer asks for them, so multi-gigabyte checkpoints can
-be streamed shard-by-shard straight to TPU HBM.
+be streamed shard-by-shard straight to device memory.
 """
 from __future__ import annotations
 

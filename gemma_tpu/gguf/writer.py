@@ -1,7 +1,7 @@
 """GGUF writer.
 
 The reference has no writer (it only consumes checkpoints produced by
-llama.cpp's converter). The TPU framework ships one so that (a) tests can
+llama.cpp's converter). This framework ships one so that (a) tests can
 fabricate tiny valid GGUF models without network access, and (b) checkpoints
 can be re-quantized/exported natively.
 """

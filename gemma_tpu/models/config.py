@@ -57,9 +57,9 @@ class GemmaConfig:
     @property
     def padded_vocab_size(self) -> int:
         """Vocab rounded up to a 2048 multiple. The embedding/head QTensor is
-        zero-padded to this so the lm_head matmul tiles at bn=2048 (the raw
-        Gemma vocab 256128 only tiles at bn=128: measured 320 vs 666 GB/s —
-        tools/bench_shapes.py); logits are sliced back to vocab_size."""
+        zero-padded to this so the lm_head matmul splits into whole column
+        slabs for any kernel tile up to 2048 wide; logits are sliced back
+        to vocab_size."""
         return -(-self.vocab_size // 2048) * 2048
 
     @property

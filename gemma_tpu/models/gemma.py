@@ -19,8 +19,8 @@ Conventions (matching llama.cpp GGUF exports):
 * GQA is general: n_kv_heads may be 1 (Gemma-2B MQA) .. n_heads (7B MHA) —
   the reference hardcodes MQA (SURVEY.md quirks).
 
-Attention runs through gemma_tpu.ops.attention, which dispatches to Pallas
-flash/decode kernels on TPU with an XLA fallback.
+Attention runs through gemma_tpu.ops.attention: cuDNN flash attention for
+prefill and a Pallas decode kernel on the GPU, plain XLA elsewhere.
 """
 from __future__ import annotations
 
@@ -29,9 +29,8 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
-from ..ops.attention import attention
+from ..ops.attention import attention, paged_decode_attention, paged_decode_supported
 from ..ops.linear import linear
-from ..ops.paged_attention import paged_decode_attention, paged_decode_supported
 from ..runtime.kv_cache import KVCache
 from ..utils.tensor_dump import record
 from .config import GemmaConfig
@@ -78,7 +77,7 @@ def decoder_layer(
     geometry (n_heads/d_ff divided by the axis size) and the two output
     projections produce partial sums that are psum'd here explicitly —
     the hand-written analogue of the collectives GSPMD inserts, keeping
-    the Pallas kernels on shard-local weights (no all-gather of weights).
+    the kernels on shard-local weights (no all-gather of weights).
     """
     B, T, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
@@ -113,7 +112,7 @@ def decoder_layer(
         cache = cache.write_chunk_per_seq(layer_idx, write_index, k, v)
 
     window = cfg.layer_window(layer_idx)
-    if hasattr(cache, "page_table") and paged_decode_supported(cache, T, cfg.n_heads):
+    if hasattr(cache, "page_table") and paged_decode_supported(cache, q):
         # paged pool read via block-table indirection — never densified
         attn = paged_decode_attention(
             q, cache, layer_idx, kv_limit, cfg.attn_softcap, window

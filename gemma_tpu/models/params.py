@@ -59,7 +59,7 @@ def _maybe_fuse(lp: dict[str, Any], names: tuple[str, ...], fused_name: str) -> 
     """Fuse row-concatenable projections (q|k|v, gate|up) into one matmul.
 
     The reference issues one mul_mat per projection (gemma_model.cpp:692-696,
-    444-452); on TPU, fusing them cuts kernel launches and enlarges tiles.
+    444-452); fusing them cuts kernel launches and enlarges tiles.
     Only fuses when all parts share a quant format (mixed-type GGUF exports,
     e.g. Q4_K_M's Q6_K attn_v, stay separate)."""
     import numpy as np

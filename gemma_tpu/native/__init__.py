@@ -2,7 +2,7 @@
 
 `native/gemma_native.cpp` implements the load-time hot path — parallel
 block-dequant and GGUF→device-layout repack — as a C-ABI shared library
-(the TPU framework's counterpart to the reference's C++ runtime substrate:
+(this framework's counterpart to the reference's C++ runtime substrate:
 thread_pool.cpp + the ggml loader, SURVEY.md §2). This module compiles it
 with g++ on first use (cached next to the source, keyed on source mtime)
 and exposes numpy-level wrappers. Everything degrades gracefully to the

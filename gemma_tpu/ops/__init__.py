@@ -1,4 +1,3 @@
-from .linear import linear, register_kernel, set_force_fallback
-from . import quant_matmul  # noqa: F401  (registers fused kernels)
+from .linear import linear
 
-__all__ = ["linear", "register_kernel", "set_force_fallback", "quant_matmul"]
+__all__ = ["linear"]

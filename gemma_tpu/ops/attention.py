@@ -1,63 +1,66 @@
-"""Attention ops: Pallas flash attention (prefill) + S-tiled decode kernel.
+"""Attention: plain prefill dispatch and a split-K decode kernel (Triton).
 
 Replaces the reference's materialized QK^T + dense 512x512 -inf mask + full
-softmax (`/root/reference/src/gemma_model.cpp:326-335,454-496`) with an
-online-softmax tiled kernel: the [T, S] score matrix never exists in HBM,
-so context scales to 8K+ (BASELINE.json configs 3-4) where the dense path
-would need gigabytes.
+softmax (`/root/reference/src/gemma_model.cpp:326-335,454-496`).
 
 Shapes (cache-native, GQA-general):
     q:  [B, T, Hq, D]    (already scaled by query_scale, RoPE applied)
-    k,v:[B, Hkv, S, D]   (the KV-cache's own layout — S second-to-last so
-                         Pallas blocks tile (bs, D) without any transpose;
-                         Mosaic requires the last two block dims tileable)
+    k,v:[B, Hkv, S, D]   (the dense KV-cache's own layout), or the paged
+                         pool [P, Hkv, ps, D] with a block table
     positions: [B, T]    absolute query positions (mask: key_idx <= pos)
     kv_limit:  [B]       number of valid cache slots
 
 Masking rule matches runtime.kv_cache semantics: key slot j attends iff
-j <= position[q] and j < kv_limit[b]. Both kernels skip KV tiles that are
-entirely masked (causal/validity block skip), so early decode steps on an
-8K cache stream only the live prefix, not the whole allocation.
+j <= position[q] and j < kv_limit[b] (and j > position[q] - window when a
+sliding window is set).
 
-Dispatch: `attention()` uses the flash kernel on TPU when shapes tile
-(T, S multiples of the block sizes, D lane-aligned), the fused S-tiled
-decode kernel for T=1, and the XLA fallback otherwise.
+* Prefill (T > 1) is compute-bound and needs no kernel of its own: on the
+  GPU it runs cuDNN's fused flash attention through
+  `jax.nn.dot_product_attention` with the mask above; layers with a logit
+  softcap (Gemma-2), which cuDNN does not cover, and every other backend run
+  `sdpa_xla`.
+* Decode (T = 1) reads the cache once per step, so its cost is bytes. The
+  kernel splits the LIVE key range of each (sequence, KV head) across
+  programs that run in parallel; each program loops over its blocks with an
+  online softmax and writes a partial (m, l, acc), which a small XLA merge
+  combines. Blocks past `kv_limit` or before the window are never read, so
+  a step costs the live prefix, not the allocation. int8 caches are read
+  in place: the per-position scales commute through both dots, s = (q·k8)
+  * ks and out = (p * vs) @ v8. The same kernel walks a paged pool, each
+  block loading its own page index from the block table.
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-NUM_LANES = 128
-DEFAULT_BLOCK_Q = 128
-DEFAULT_BLOCK_S = 128
-DECODE_BLOCK_S = 256
-DECODE_BLOCK_S_LONG = 1024  # long caches: fewer, bigger S-tiles
+from . import _backend
+
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
+DECODE_BLOCK = 64  # keys per inner-loop block of the dense decode kernel
+_MIN_G = 16  # pl.dot's least row count: query heads per KV head pad to this
+_TARGET_PROGRAMS = 264  # two programs per SM of an H100
+# cuDNN's fused attention beats sdpa_xla from about this many scores
+# (Hq * T * S) up; below it XLA's fusions are faster (PERF.md)
+CUDNN_MIN_SCORES = 1 << 24
+_NUM_WARPS = 4
+_NUM_STAGES = 2
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def _valid(positions, kv_limit, S: int, window: int) -> jax.Array:
+    """[B, T, S] mask of the keys each query attends to."""
+    key_idx = jnp.arange(S, dtype=jnp.int32)
+    valid = (key_idx[None, None, :] <= positions[:, :, None]) & (
+        key_idx[None, None, :] < kv_limit[:, None, None]
+    )
+    if window > 0:  # sliding window: only the last `window` positions
+        valid &= key_idx[None, None, :] > positions[:, :, None] - window
+    return valid
 
-
-_FORCE_FALLBACK = False
-
-
-def set_force_fallback(flag: bool) -> None:
-    """Verification hook (utils.verify): route `attention()` through the
-    XLA path so the Pallas kernels can be diffed against it on-device."""
-    global _FORCE_FALLBACK
-    _FORCE_FALLBACK = flag
-
-
-# ---------------------------------------------------------------------------
-# XLA fallback (moved from models/gemma.py)
-# ---------------------------------------------------------------------------
 
 def sdpa_xla(
     q: jax.Array,  # [B, T, Hq, D] (scaled)
@@ -68,6 +71,7 @@ def sdpa_xla(
     attn_softcap: float = 0.0,
     window: int = 0,
 ) -> jax.Array:
+    """The plain attention every path is checked against."""
     B, T, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -75,357 +79,170 @@ def sdpa_xla(
     scores = jnp.einsum("bthgd,bhsd->bhgts", qg, k, preferred_element_type=jnp.float32)
     if attn_softcap:
         scores = attn_softcap * jnp.tanh(scores / attn_softcap)
-    key_idx = jnp.arange(S, dtype=jnp.int32)
-    valid = (key_idx[None, None, :] <= positions[:, :, None]) & (
-        key_idx[None, None, :] < kv_limit[:, None, None]
-    )
-    if window > 0:  # sliding window: only the last `window` positions
-        valid &= key_idx[None, None, :] > positions[:, :, None] - window
+    valid = _valid(positions, kv_limit, S, window)
     scores = jnp.where(valid[:, None, None], scores, -1e30)
     w = jax.nn.softmax(scores, axis=-1)
     out = jnp.einsum("bhgts,bhsd->bthgd", w.astype(v.dtype), v)
     return out.reshape(B, T, Hq, D)
 
 
+def prefill_attention(
+    q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0
+) -> jax.Array:
+    """T > 1: cuDNN flash attention on the GPU where it covers the layer and
+    the layer is large enough to gain, `sdpa_xla` otherwise."""
+    _, T, Hq, D = q.shape
+    cudnn = (
+        _backend.use_kernels("attention")
+        and _backend.on_gpu()
+        and Hq * T * k.shape[2] >= CUDNN_MIN_SCORES
+        and not attn_softcap
+        and q.dtype == k.dtype == jnp.bfloat16
+        and D % 8 == 0
+        and D <= 256
+    )
+    if not cudnn:
+        return sdpa_xla(q, k, v, positions, kv_limit, attn_softcap, window)
+    mask = _valid(positions, kv_limit, k.shape[2], window)[:, None]
+    return jax.nn.dot_product_attention(
+        q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3),
+        mask=mask, scale=1.0, implementation="cudnn",
+    )
+
+
 # ---------------------------------------------------------------------------
-# Flash kernel (prefill)
+# Split-K decode kernel
 # ---------------------------------------------------------------------------
 
-def _flash_kernel(
-    lim_ref,  # SMEM [B, 1] kv_limit per batch row
-    qpos_ref,  # VMEM [1, bq, 1] absolute position of each query row
-    q_ref,  # [1, 1, bq, D]
-    k_ref,  # [1, 1, bs, D]
-    v_ref,  # [1, 1, bs, D]
-    o_ref,  # [1, 1, bq, D]
-    m_scr,  # VMEM [bq, NUM_LANES] f32
-    l_scr,  # VMEM [bq, NUM_LANES] f32
-    acc_scr,  # VMEM [bq, D] f32
-    *,
-    n_s_tiles: int,
-    block_s: int,
-    attn_softcap: float,
-    window: int = 0,
-):
-    s_idx = pl.program_id(3)
+def _decode_kernel(*refs, bs, splits, window, attn_softcap, paged, quantized):
+    if quantized:
+        q_ref, k_ref, v_ref, ks_ref, vs_ref, *refs = refs
+    else:
+        q_ref, k_ref, v_ref, *refs = refs
+    if paged:
+        pt_ref, lim_ref, o_ref, m_ref, l_ref = refs
+    else:
+        lim_ref, o_ref, m_ref, l_ref = refs
+    b, h, s = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    limit = lim_ref[b]
+    lo = jnp.maximum(limit - window, 0) if window > 0 else 0
+    first = lo // bs
+    n_live = (limit + bs - 1) // bs - first
+    per = (n_live + splits - 1) // splits
+    start = first + s * per
+    end = jnp.minimum(start + per, first + n_live)
 
-    @pl.when(s_idx == 0)
-    def _():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
+    q = q_ref[b, h]  # [Gp, D] bf16
+    Gp, D = q.shape
 
-    bq, D = q_ref.shape[2], q_ref.shape[3]
-    # per-row absolute query positions, [bq, 1] (the [B, T, 1] layout makes
-    # the lane-1 block reshape straight onto the sublane axis — no transpose,
-    # no consecutive-positions contract)
-    qp = qpos_ref[0]  # [bq, 1] i32
-    b = pl.program_id(0)
-    limit = lim_ref[b, 0]
+    def block(j):
+        if paged:
+            page = pt_ref[b, j]
+            return page, h, slice(None)
+        return b, h, pl.ds(j * bs, bs)
 
-    # tile-level skip: any key in this tile valid for any query row?
-    s_start = s_idx * block_s
-    max_pos = jnp.max(qp)
-    tile_live = (s_start <= max_pos) & (s_start < limit)
-    if window > 0:  # tile entirely older than every query's window?
-        tile_live &= s_start + block_s - 1 >= jnp.min(qp) - window + 1
-
-    @pl.when(tile_live)
-    def _():
-        q = q_ref[0, 0]  # [bq, D]
-        k = k_ref[0, 0]  # [bs, D]
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )  # [bq, bs]
+    def body(j, carry):
+        acc, m, l = carry
+        i0, i1, i2 = block(j)
+        k = k_ref[i0, i1, i2, :]  # [bs, D]
+        sc = pl.dot(q, k.astype(jnp.bfloat16), trans_b=True)  # [Gp, bs] f32
+        if quantized:
+            sc = sc * ks_ref[i0, i1, i2][None, :]
         if attn_softcap:
-            s = attn_softcap * jnp.tanh(s / attn_softcap)
-        key_pos = s_start + jax.lax.broadcasted_iota(jnp.int32, (bq, block_s), 1)
-        mask = (key_pos <= qp) & (key_pos < limit)
-        if window > 0:
-            mask &= key_pos > qp - window
-        s = jnp.where(mask, s, MASK_VALUE)
+            sc = attn_softcap * jnp.tanh(sc / attn_softcap)
+        col = j * bs + jax.lax.broadcasted_iota(jnp.int32, (Gp, bs), 1)
+        valid = (col < limit) & (col >= lo)
+        sc = jnp.where(valid, sc, MASK_VALUE)
+        m_next = jnp.maximum(m, sc.max(axis=1))
+        alpha = jnp.exp(m - m_next)
+        p = jnp.where(valid, jnp.exp(sc - m_next[:, None]), 0.0)
+        l = alpha * l + p.sum(axis=1)
+        if quantized:
+            p = p * vs_ref[i0, i1, i2][None, :]
+        v = v_ref[i0, i1, i2, :].astype(jnp.bfloat16)
+        acc = alpha[:, None] * acc + pl.dot(p.astype(jnp.bfloat16), v)
+        return acc, m_next, l
 
-        m_prev = m_scr[...][:, :1]  # [bq, 1]
-        l_prev = l_scr[...][:, :1]
-        m_cur = jnp.max(s, axis=1, keepdims=True)  # [bq, 1]
-        m_next = jnp.maximum(m_prev, m_cur)
-        alpha = jnp.exp(m_prev - m_next)
-        p = jnp.exp(s - m_next)  # [bq, bs]
-        # fully-masked rows: p ~ exp(MASK - MASK)=1 would pollute; zero them
-        p = jnp.where(mask, p, 0.0)
-        l_next = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
+    acc, m, l = jax.lax.fori_loop(
+        start, end, body,
+        (
+            jnp.zeros((Gp, D), jnp.float32),
+            jnp.full((Gp,), MASK_VALUE, jnp.float32),
+            jnp.zeros((Gp,), jnp.float32),
+        ),
+    )
+    o_ref[b, h, s] = acc
+    m_ref[b, h, s] = m
+    l_ref[b, h, s] = l
 
-        m_scr[...] = jnp.broadcast_to(m_next, m_scr.shape)
-        l_scr[...] = jnp.broadcast_to(l_next, l_scr.shape)
-        v_t = v_ref[0, 0]  # [bs, D]
-        pv = jax.lax.dot_general(
-            p.astype(v_t.dtype), v_t, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[...] = acc_scr[...] * alpha + pv
 
-    @pl.when(s_idx == n_s_tiles - 1)
-    def _():
-        l = l_scr[...][:, :1]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o_ref[0, 0] = (acc_scr[...] * l_inv).astype(o_ref.dtype)
+def _split_count(programs: int, max_blocks: int) -> int:
+    """Splits of each live key range: the largest power of two that keeps
+    the program count near _TARGET_PROGRAMS, at most one per cache block."""
+    s = 1
+    while programs * s * 2 <= _TARGET_PROGRAMS and s * 2 <= max_blocks:
+        s *= 2
+    return s
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("block_q", "block_s", "attn_softcap", "window", "interpret"),
-)
-def _flash_call(
-    q_bhtd, k_bhsd, v_bhsd, positions, kv_limit,
-    block_q, block_s, attn_softcap, window, interpret,
-):
-    B, Hq, T, D = q_bhtd.shape
-    Hkv, S = k_bhsd.shape[1], k_bhsd.shape[2]
-    G = Hq // Hkv
-    n_s = S // block_s
-    grid = (B, Hq, T // block_q, n_s)
-
-    kernel = functools.partial(
-        _flash_kernel, n_s_tiles=n_s, block_s=block_s,
-        attn_softcap=attn_softcap, window=window,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, block_q, 1), lambda b, h, tq, sk: (b, tq, 0)),
-            pl.BlockSpec((1, 1, block_q, D), lambda b, h, tq, sk: (b, h, tq, 0)),
-            pl.BlockSpec((1, 1, block_s, D), lambda b, h, tq, sk: (b, h // G, sk, 0)),
-            pl.BlockSpec((1, 1, block_s, D), lambda b, h, tq, sk: (b, h // G, sk, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, 1, block_q, D), lambda b, h, tq, sk: (b, h, tq, 0)),
-        out_shape=jax.ShapeDtypeStruct((B, Hq, T, D), q_bhtd.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, D), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(kv_limit.reshape(B, 1), positions[:, :, None], q_bhtd, k_bhsd, v_bhsd)
-    return out
-
-
-def flash_supported(T: int, S: int, D: int) -> bool:
-    # positions are passed per-row into the kernel, so arbitrary (even
-    # non-consecutive) query positions are handled — no caller contract
-    return T % DEFAULT_BLOCK_Q == 0 and S % DEFAULT_BLOCK_S == 0 and D % NUM_LANES == 0
-
-
-def _pick_flash_blocks(T: int, S: int) -> tuple[int, int]:
-    """Largest 128-multiple tiles up to 512 dividing T/S: per-grid-step
-    overhead dominates small tiles (2K causal, Gemma-2B heads, measured
-    us/layer — tools/bench_flash.py: 128x128 = 1118, 256x256 = 475,
-    512x512 = 228; VMEM at 512x512 is ~3 MB/step)."""
-    bq = next((b for b in (512, 256, 128) if T % b == 0), T)
-    bs = next((b for b in (512, 256, 128) if S % b == 0), S)
-    return bq, bs
-
-
-def flash_attention(
-    q: jax.Array,  # [B, T, Hq, D] scaled
-    k: jax.Array,  # [B, Hkv, S, D] (cache layout)
-    v: jax.Array,
-    positions: jax.Array,  # [B, T] absolute query positions (arbitrary)
-    kv_limit: jax.Array,  # [B]
-    attn_softcap: float = 0.0,
-    window: int = 0,
-    block_q: int | None = None,
-    block_s: int | None = None,
-) -> jax.Array:
-    T, S = q.shape[1], k.shape[2]
-    if block_q is None or block_s is None:
-        pq, ps = _pick_flash_blocks(T, S)
-        block_q = block_q or pq
-        block_s = block_s or ps
-    q_bhtd = q.transpose(0, 2, 1, 3)
-    out = _flash_call(
-        q_bhtd, k, v,
-        positions.astype(jnp.int32), kv_limit.astype(jnp.int32),
-        block_q, block_s, float(attn_softcap), int(window), _interpret(),
-    )
-    return out.transpose(0, 2, 1, 3)
-
-
-# ---------------------------------------------------------------------------
-# Decode kernel (T=1): one fused program per layer instead of the ~6 XLA
-# fusions (einsum, mask, softmax, einsum) of sdpa_xla — at batch-1 decode
-# those small launches cost more than the KV stream itself. S-tiled with a
-# validity skip, so a long cache only streams its live prefix (an 8K cache
-# at position 500 reads 3 tiles, not 32) and VMEM never bounds S.
-#
-# int8-KV mode reads quantized tiles IN PLACE: the per-(position, head)
-# scales commute through both dots — s = (q · k8ᵀ) * ks and
-# out = (p * vs) @ v8 — so no dequantized copy ever exists (in HBM or
-# VMEM) and int8 halves the cache stream, as config 3 promises. The scale
-# rows arrive as [1, bs] lane vectors, broadcast against [G, bs] scores.
-# ---------------------------------------------------------------------------
-
-def _decode_kernel(
-    lim_ref,  # scalar-prefetch: i32 [B]
-    q_ref,  # [1, Hkv, G, D]
-    k_ref,  # [1, Hkv, bs, D] (bf16, or int8 when quantized)
-    v_ref,  # [1, Hkv, bs, D]
-    *rest,  # quantized: ks_ref [1, Hkv, bs], vs_ref [1, Hkv, bs], then outputs
-    n_s_tiles: int,
-    block_s: int,
-    window: int,
-    attn_softcap: float,
-    quantized: bool = False,
-):
-    # ALL KV heads per block: grid steps execute sequentially on the one
-    # v5e core, so a per-(head, tile) grid pays the fixed per-step cost
-    # Hkv-times more — MHA Gemma-7B's 16 heads made decode attention
-    # per-step-overhead-bound. One (Hkv, bs, D) slab per S-tile walks
-    # Hkv-times fewer steps with Hkv-times fatter DMAs.
-    if quantized:
-        ks_ref, vs_ref, o_ref, m_scr, l_scr, acc_scr = rest
-    else:
-        o_ref, m_scr, l_scr, acc_scr = rest
-    s_idx = pl.program_id(1)
-
-    @pl.when(s_idx == 0)
-    def _():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    limit = lim_ref[pl.program_id(0)]
-    s_start = s_idx * block_s
-    tile_live = s_start < limit
-    if window > 0:  # tile entirely older than the query's window?
-        tile_live &= s_start + block_s - 1 >= limit - window
-
-    @pl.when(tile_live)
-    def _():
-        q = q_ref[0]  # [Hkv, G, D]
-        k = k_ref[0]  # [Hkv, bs, D]
-        Hkv, G, D = q.shape
-        s = jax.lax.dot_general(
-            q, k.astype(q.dtype) if quantized else k,
-            (((2,), (2,)), ((0,), (0,))), preferred_element_type=jnp.float32,
-        )  # [Hkv, G, bs]
-        if quantized:
-            # per-position K scales, all heads at once: [Hkv, 1, bs]
-            s = s * ks_ref[0][:, None, :]
-        if attn_softcap:
-            s = attn_softcap * jnp.tanh(s / attn_softcap)
-        col = s_start + jax.lax.broadcasted_iota(jnp.int32, (Hkv, G, block_s), 2)
-        mask = col < limit
-        if window > 0:
-            mask &= col > limit - 1 - window
-        s = jnp.where(mask, s, MASK_VALUE)
-
-        m_prev = m_scr[...].reshape(Hkv, G, NUM_LANES)[:, :, :1]
-        l_prev = l_scr[...].reshape(Hkv, G, NUM_LANES)[:, :, :1]
-        m_cur = jnp.max(s, axis=2, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_cur)
-        alpha = jnp.exp(m_prev - m_next)
-        p = jnp.exp(s - m_next)
-        p = jnp.where(mask, p, 0.0)
-        l_next = alpha * l_prev + jnp.sum(p, axis=2, keepdims=True)
-        m_scr[...] = jnp.broadcast_to(m_next, (Hkv, G, NUM_LANES)).reshape(m_scr.shape)
-        l_scr[...] = jnp.broadcast_to(l_next, (Hkv, G, NUM_LANES)).reshape(l_scr.shape)
-        v_t = v_ref[0]  # [Hkv, bs, D]
-        if quantized:
-            p = p * vs_ref[0][:, None, :]
-            v_t = v_t.astype(jnp.bfloat16)
-        pv = jax.lax.dot_general(
-            p.astype(v_t.dtype), v_t, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [Hkv, G, D]
-        acc_scr[...] = (
-            acc_scr[...].reshape(Hkv, G, D) * alpha + pv
-        ).reshape(acc_scr.shape)
-
-    @pl.when(s_idx == n_s_tiles - 1)
-    def _():
-        Hkv, G, D = q_ref.shape[1:]
-        l = l_scr[...].reshape(Hkv, G, NUM_LANES)[:, :, :1]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o_ref[0] = (acc_scr[...].reshape(Hkv, G, D) * l_inv).astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_s", "window", "attn_softcap", "interpret")
+    static_argnames=("bs", "window", "attn_softcap", "interpret"),
 )
 def _decode_call(
-    q_bhgd, k, v, k_scale, v_scale, kv_limit, block_s, window, attn_softcap, interpret
+    qg, k, v, k_scale, v_scale, page_table, kv_limit,
+    bs, window, attn_softcap, interpret,
 ):
-    B, Hkv, G, D = q_bhgd.shape
-    S = k.shape[2]
-    n_s = S // block_s
+    """qg [B, Hkv, Gp, D] -> (acc [B, Hkv, n, Gp, D], m, l [B, Hkv, n, Gp])
+    over n splits of the live key range."""
+    B, Hkv, Gp, D = qg.shape
+    paged = page_table is not None
     quantized = k_scale is not None
+    max_blocks = page_table.shape[1] if paged else k.shape[2] // bs
+    splits = _split_count(B * Hkv, max_blocks)
     kernel = functools.partial(
-        _decode_kernel, n_s_tiles=n_s, block_s=block_s,
-        window=window, attn_softcap=attn_softcap, quantized=quantized,
+        _decode_kernel, bs=bs, splits=splits, window=window,
+        attn_softcap=attn_softcap, paged=paged, quantized=quantized,
     )
-
-    def tile_map(b, sk, lim_ref):
-        # Dead-tile DMA elision (same trick as paged_attention.page_map):
-        # tiles past the live prefix — and, with a window, before the
-        # window start — re-request the nearest LIVE tile; consecutive
-        # identical block indices elide the DMA and pl.when skips the
-        # compute. Without this, a 4096-slot cache holding a 2048-token
-        # prefix streamed the dead half every step (7B dense bf16 measured
-        # 83.7 -> 60.2 tok/s when the allocation doubled; the reference
-        # avoids it with live-window bookkeeping, gemma_model.cpp:428-436).
-        limit = lim_ref[b]
-        last = jnp.maximum((limit + block_s - 1) // block_s, 1) - 1
-        first = jnp.maximum(limit - window, 0) // block_s if window > 0 else 0
-        idx = jnp.clip(sk, first, last)
-        return (b, 0, idx, 0)
-
-    def tile_map3(b, sk, lim_ref):
-        limit = lim_ref[b]
-        last = jnp.maximum((limit + block_s - 1) // block_s, 1) - 1
-        first = jnp.maximum(limit - window, 0) // block_s if window > 0 else 0
-        idx = jnp.clip(sk, first, last)
-        return (b, 0, idx)
-
-    in_specs = [
-        pl.BlockSpec((1, Hkv, G, D), lambda b, sk, *_: (b, 0, 0, 0)),
-        pl.BlockSpec((1, Hkv, block_s, D), tile_map),
-        pl.BlockSpec((1, Hkv, block_s, D), tile_map),
-    ]
-    inputs = [q_bhgd, k, v]
+    inputs = [qg, k, v]
     if quantized:
-        in_specs += [pl.BlockSpec((1, Hkv, block_s), tile_map3)] * 2
         inputs += [k_scale, v_scale]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, n_s),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, Hkv, G, D), lambda b, sk, *_: (b, 0, 0, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((Hkv * G, NUM_LANES), jnp.float32),
-            pltpu.VMEM((Hkv * G, NUM_LANES), jnp.float32),
-            pltpu.VMEM((Hkv * G, D), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
+    if paged:
+        inputs.append(page_table)
+    inputs.append(kv_limit)
+    return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, Hkv, G, D), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
+        grid=(B, Hkv, splits),
+        out_shape=[
+            jax.ShapeDtypeStruct((B, Hkv, splits, Gp, D), jnp.float32),
+            jax.ShapeDtypeStruct((B, Hkv, splits, Gp), jnp.float32),
+            jax.ShapeDtypeStruct((B, Hkv, splits, Gp), jnp.float32),
+        ],
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
         interpret=interpret,
-    )(kv_limit, *inputs)
-    return out
+        name="decode_attention",
+    )(*inputs)
 
 
-MIN_DECODE_G = 8
+def _run_decode(q, k, v, k_scale, v_scale, page_table, kv_limit, bs,
+                attn_softcap, window):
+    """Shared wrapper: pad query groups, run the kernel, merge the splits."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    Gp = max(_MIN_G, 1 << (G - 1).bit_length())
+    qg = q.reshape(B, Hkv, G, D).astype(jnp.bfloat16)
+    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, Gp - G), (0, 0)))
+    acc, m, l = _decode_call(
+        qg, k, v, k_scale, v_scale, page_table, kv_limit.astype(jnp.int32),
+        bs, int(window), float(attn_softcap), _backend.interpret(),
+    )
+    m_all = m.max(axis=2, keepdims=True)
+    w = jnp.exp(m - m_all)  # splits that saw no key carry m = MASK_VALUE
+    out = (acc * w[..., None]).sum(axis=2) / (l * w).sum(axis=2)[..., None]
+    return out[:, :, :G].reshape(B, 1, Hq, D).astype(q.dtype)
 
 
 def decode_attention(
@@ -437,53 +254,67 @@ def decode_attention(
     window: int = 0,
     k_scale: jax.Array | None = None,  # [B, Hkv, S] f32 (int8 mode)
     v_scale: jax.Array | None = None,
-    block_s: int | None = None,
 ) -> jax.Array:
-    B, T, Hq, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    Gp = max(G, MIN_DECODE_G)
-    qg = q.reshape(B, Hkv, G, D)
-    if Gp != G:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, Gp - G), (0, 0)))
-    block_s = block_s or _pick_decode_block_s(S, Hkv, D)
-    out = _decode_call(
-        qg, k, v, k_scale, v_scale, kv_limit.astype(jnp.int32),
-        block_s, int(window), float(attn_softcap), _interpret(),
+    """Decode attention over the dense cache through the kernel."""
+    return _run_decode(
+        q, k, v, k_scale, v_scale, None, kv_limit, DECODE_BLOCK,
+        attn_softcap, window,
     )
-    # q.dtype (not hardcoded bf16) so kernel and sdpa_xla fallback return
-    # the same dtype for f32-activation configs
-    return out[:, :, :G].reshape(B, 1, Hq, D).astype(q.dtype)
 
 
-def _pick_decode_block_s(S: int, Hkv: int = 1, D: int = 128) -> int:
-    # bigger S-tiles amortize per-grid-step overhead on long caches (the
-    # per-step cost dominates the tiny per-tile DMA/compute at decode);
-    # the validity skip still bounds reads to the live prefix rounded up
-    # to one tile. Short caches keep 256-tiles: a single whole-S tile
-    # loses the DMA/compute pipelining (S=512 with bs=512 measured the
-    # whole decode 401 -> 379 tok/s). Blocks now carry ALL Hkv heads, so
-    # cap the tile where the double-buffered K+V slabs would overflow the
-    # kernel's raised 100 MB vmem_limit (32 MB of slabs leaves ample room
-    # for q/out/scratch; strict <, because 7B hit the scoped limit when an
-    # exactly-at-budget tile plus q/scratch overflowed the default ~17 MB).
-    budget = 32 * 1024 * 1024
-    def fits(bs: int) -> bool:
-        return Hkv * bs * D * 2 * 2 * 2 < budget
-    if S <= 2 * DECODE_BLOCK_S:
-        return DECODE_BLOCK_S if S % DECODE_BLOCK_S == 0 else S
-    for bs in (DECODE_BLOCK_S_LONG, 512, DECODE_BLOCK_S):
-        if S % bs == 0 and fits(bs):
-            return bs
-    return DECODE_BLOCK_S if S % DECODE_BLOCK_S == 0 else S
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
 
 
-def decode_supported(T: int, S: int, Hq: int, Hkv: int, D: int) -> bool:
+def decode_supported(q, k) -> bool:
+    """Kernel path gate for T=1: power-of-two head_dim (a Triton block
+    rule), whole key blocks, bf16 queries over a bf16 or int8 cache."""
+    _, T, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
     return (
         T == 1
-        and D % NUM_LANES == 0
-        and (S % DECODE_BLOCK_S == 0 or S % 8 == 0)
+        and _pow2(D)
+        and S % DECODE_BLOCK == 0
         and Hq % Hkv == 0
+        and q.dtype == jnp.bfloat16
+        and k.dtype in (jnp.bfloat16, jnp.int8)
+    )
+
+
+def paged_decode_supported(cache, q) -> bool:
+    """Kernel path gate for decode over a paged pool: as decode_supported,
+    with a power-of-two page size of at least 16 keys."""
+    Hkv, ps, D = cache.k_pages[0].shape[1:]
+    _, T, Hq, _ = q.shape
+    return (
+        _backend.use_kernels("attention")
+        and T == 1
+        and _pow2(D)
+        and _pow2(ps)
+        and ps >= 16
+        and Hq % Hkv == 0
+        and q.dtype == jnp.bfloat16
+        and cache.k_pages[0].dtype in (jnp.bfloat16, jnp.int8)
+    )
+
+
+def paged_decode_attention(
+    q: jax.Array,  # [B, 1, Hq, D] scaled
+    cache,  # PagedKVCache
+    layer: int,
+    kv_limit: jax.Array,  # [B]
+    attn_softcap: float = 0.0,
+    window: int = 0,
+) -> jax.Array:
+    """Decode attention over the paged pool, read through the block table
+    by the same kernel; returns [B, 1, Hq, D]. Never densifies the pool."""
+    quantized = cache.quantized
+    return _run_decode(
+        q, cache.k_pages[layer], cache.v_pages[layer],
+        cache.k_scale[layer] if quantized else None,
+        cache.v_scale[layer] if quantized else None,
+        cache.page_table.astype(jnp.int32), kv_limit, cache.page_size,
+        attn_softcap, window,
     )
 
 
@@ -498,24 +329,17 @@ def attention(
     k_scale: jax.Array | None = None,  # [B, Hkv, S] int8-KV scales
     v_scale: jax.Array | None = None,
 ) -> jax.Array:
-    """Dispatch: flash kernel for tile-compatible prefill shapes, fused
-    S-tiled decode kernel for T=1, XLA fallback otherwise (odd shapes, CPU).
+    """Dispatch: the decode kernel for T=1 where kernels run and the shape
+    fits, `prefill_attention` otherwise.
 
     With `k_scale`/`v_scale`, k/v are int8 and the decode kernel reads them
-    in place (halving the cache stream); non-decode shapes dequantize once
-    and take the normal path (prefill reads the cache once anyway)."""
-    B, T, Hq, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    use_interpret = os.environ.get("GEMMA_TPU_INTERPRET_KERNELS") == "1"
-    on_kernel_path = (not _interpret() or use_interpret) and not _FORCE_FALLBACK
-    if on_kernel_path and decode_supported(T, S, Hq, Hkv, D):
+    in place; every other path dequantizes once first."""
+    if _backend.use_kernels("attention") and decode_supported(q, k):
         return decode_attention(
             q, k, v, kv_limit, attn_softcap, window,
             k_scale=k_scale, v_scale=v_scale,
         )
-    if k_scale is not None:  # non-decode shapes: dequantize once
+    if k_scale is not None:  # dequantize once
         k = k.astype(jnp.bfloat16) * k_scale[..., None].astype(jnp.bfloat16)
         v = v.astype(jnp.bfloat16) * v_scale[..., None].astype(jnp.bfloat16)
-    if on_kernel_path and flash_supported(T, S, D) and Hq % Hkv == 0:
-        return flash_attention(q, k, v, positions, kv_limit, attn_softcap, window)
-    return sdpa_xla(q, k, v, positions, kv_limit, attn_softcap, window)
+    return prefill_attention(q, k, v, positions, kv_limit, attn_softcap, window)

@@ -1,33 +1,19 @@
 """Linear / matmul dispatch.
 
-All model projections route through :func:`linear` so quantized weights can
-be served by fused Pallas dequant+matmul kernels on TPU, with an XLA
-dequantize-then-dot fallback elsewhere. This is the TPU-native analogue of
-the reference's patched-ggml dispatch into `hpc.cpp:216 mul_mat` — but where
-the reference picks CPU-vs-iGPU per call with a static 0.9 row split
-(`hpc.cpp:245-248`), here the backend choice is per-platform and the "split"
-is the compiler's tiling.
+All model projections route through :func:`linear`, so quantized weights
+are served by the fused dequant+matmul kernels of ops.quant_matmul where
+those run, and by XLA's dequantize-then-dot elsewhere. Where the reference
+picks CPU-vs-iGPU per call with a static 0.9 row split
+(`hpc.cpp:245-248`), here the choice is per backend and per shape
+(quant_matmul.matmul).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..quant.qtensor import QTensor, dequant_t
-
-# Set by gemma_tpu.ops.quant_matmul at import time on TPU; maps fmt -> fn.
-_KERNELS: dict[str, object] = {}
-_FORCE_FALLBACK = False
-
-
-def register_kernel(fmt: str, fn) -> None:
-    _KERNELS[fmt] = fn
-
-
-def set_force_fallback(flag: bool) -> None:
-    """Testing hook: bypass Pallas kernels and use the XLA dequant path."""
-    global _FORCE_FALLBACK
-    _FORCE_FALLBACK = flag
+from ..quant.qtensor import QTensor
+from . import quant_matmul
 
 
 def _trace_count(x: jax.Array, w, path: str) -> None:
@@ -52,16 +38,17 @@ def _trace_count(x: jax.Array, w, path: str) -> None:
 def linear(x: jax.Array, w, *, out_dtype=None) -> jax.Array:
     """y = x @ w.T for w either a dense [out, in] array or a QTensor.
 
-    x: [..., in]; returns [..., out] in x.dtype (or out_dtype).
+    x: [..., in]; returns [..., out] in x.dtype (or out_dtype). f32
+    activations (the evaluation-precision mode) multiply at full f32
+    precision, not TF32.
     """
     out_dtype = out_dtype or x.dtype
     if isinstance(w, QTensor):
-        fn = None if _FORCE_FALLBACK else _KERNELS.get(w.fmt)
-        if fn is not None:
-            _trace_count(x, w, "pallas")
-            return fn(x, w).astype(out_dtype)
-        _trace_count(x, w, "xla")
-        wd = dequant_t(w, dtype=jnp.bfloat16)  # [K, N]
-        return jnp.dot(x, wd, preferred_element_type=jnp.float32).astype(out_dtype)
+        y, path = quant_matmul.matmul(x, w)
+        _trace_count(x, w, path)
+        return y.astype(out_dtype)
     _trace_count(x, w, "dense")
-    return jnp.dot(x, w.T, preferred_element_type=jnp.float32).astype(out_dtype)
+    precision = jax.lax.Precision.HIGHEST if x.dtype == jnp.float32 else None
+    return jnp.dot(
+        x, w.T, preferred_element_type=jnp.float32, precision=precision
+    ).astype(out_dtype)

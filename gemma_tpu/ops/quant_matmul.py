@@ -1,403 +1,301 @@
-"""Fused dequant+matmul Pallas kernels.
+"""Fused dequant + matmul for block-quantized weights (Pallas, Triton route).
 
-The hot op of the whole framework — the reference spends 99.49 % of its
-runtime in the equivalent `hpc.cpp:216 mul_mat` + `kernals.cl` vec-dot
-kernels (BASELINE.md). Round-2 design (int4-native; see the measurement
-table in tools/bench_qmm_variants.py):
+The hot op of the framework: the reference spends 99.49 % of its runtime in
+the equivalent `hpc.cpp:216 mul_mat` + `kernals.cl` vec-dot kernels
+(BASELINE.md). At batch-1 decode the weights are nearly all of a step's
+bytes, so the kernel reads them once, in the packed device layout of
+quant/qtensor.py, and dequantizes in registers: no dequantized copy of a
+weight ever reaches device memory.
 
-* weights stay block-quantized in HBM in the K-major QTensor v2 layout
-  (quant/qtensor.py): 4-bit payloads are K-paired signed nibbles, so the
-  kernel reinterprets each [bk/2, bn] u8 tile as int4 [bk, bn] with ONE
-  ``pltpu.bitcast`` — no nibble shifts, no plane permutes, no activation
-  reordering (round-1's f32 extraction chain cost ~5 VPU ops/weight and
-  capped decode at 37 % of the HBM roofline; this path measures ~500-560
-  GB/s per kernel at the M=8 decode shape, ~2.4x round 1);
-* dequant is convert + one broadcast-in-multiply per weight:
-  ``(w4.f32.reshape(G, 32, bn) * scale[:, None, :]).reshape(bk, bn).bf16``
-  — Mosaic fuses the broadcast into the multiply (a materialized [bk, bn]
-  scale expansion measured ~8 % slower; bf16-domain multiplies ~35 %
-  slower; batched per-group dots ~15 % slower — all kept in the variants
-  bench for re-measurement on new toolchains). Metadata arrives in the
-  v4 layout (quant/qtensor.py): bf16 group scales for q4_0/q8_0 (one
-  widening convert on 1/32 of the elements) and exact int8 sub-scales +
-  bf16 superblock d/dmin for K-quants (effective scales computed here
-  in f32 — ~0.2 extra VPU ops/weight for 21 % fewer q4_k stream bytes);
-* grid is (M/bm, N/bn, K/bk), K sequential with an f32 VMEM accumulator;
-  the zero-point is folded INTO the signed int4 payload for q4_0 (no
-  correction term at all); q4_k's per-group affine offset enters as a
-  rank-reduced ``y += xsum32 @ offs`` (one tiny MXU dot); q6_k is int8
-  payload × per-16 effective scale (one convert + one multiply class).
+Design, for a GPU whose blocks run in parallel on many SMs:
 
-Dispatch: gemma_tpu.ops.linear routes QTensor matmuls here when shapes are
-tile-compatible; otherwise it falls back to XLA dequant+dot. On CPU the
-kernels run in Pallas interpret mode (tests only).
+* grid ``(M/bm, N/bn, splits)``: a program owns a ``bn``-column slab and one
+  of ``splits`` contiguous K ranges, and loops over its range in tiles of
+  ``_SB_PER_TILE`` 256-element superblocks with an f32 accumulator in
+  registers. Shapes with few column slabs (qkv, attn_out, ffn_down at
+  decode) split K so that enough programs fill the card; XLA adds the
+  splits' partial sums afterwards;
+* 4-bit payloads pair K elements 2k (low nibble) and 2k+1 (high nibble) in
+  one byte. The activations are split into their even and odd columns
+  outside the kernel, so each nibble plane is a plain [K/2, bn] matrix:
+  ``y = x_even @ W_lo + x_odd @ W_hi``. Nibbles sign-extend by two shifts;
+* scales widen to f32 and multiply in f32; the dequantized tile narrows to
+  bf16 for the tensor-core dot, which accumulates in f32. ``pl.dot`` needs
+  16 rows, so M pads to at least 16.
+
+Every array is reshaped (a free view) so that each load is a power-of-two
+block, as the Triton route requires. Rows of M beyond ``KERNEL_MAX_M`` take
+the plain path, dequantize + cuBLAS, which wins once the matmul is
+compute-bound (PERF.md has the measurement). The plain path is also the
+reference the kernels are tested against.
 """
 from __future__ import annotations
 
 import functools
-import os
+import warnings
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..quant.qtensor import QTensor
-from .linear import register_kernel as _register_kernel
+from ..quant.qtensor import QTensor, dequant_t
+from . import _backend
 
-MIN_SUBLANE = 8
+# Largest M (rows of x) that runs the kernel; larger M runs dequant + cuBLAS.
+KERNEL_MAX_M = 64
+_MIN_M = 16  # pl.dot's least row count
+_SB = 256  # superblock: the K granule every format's metadata repeats at
+_SB_PER_TILE = 1  # superblocks per K tile of the inner loop
+_BN = 128  # output columns per program (64 and 32 measured slower, PERF.md)
+_TARGET_PROGRAMS = 264  # two programs per SM of an H100 before splitting K
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def _group_scale(qf: jax.Array, scf: jax.Array, f32dot: bool) -> jax.Array:
-    """[bk, bn] f32 values x [bk/g, bn] per-group scales -> [bk, bn].
-    The broadcast lives inside the multiply (no materialized expansion).
-    Scales arrive as bf16 (layout v4) and widen here — ONE vector convert
-    on 1/g of the payload elements, vs the halved metadata stream bytes.
-
-    Dot-domain choice by M (the `f32dot` flag, set in the launcher):
-    * decode (small M): keep f32 and feed the MXU f32 operands — MXU time
-      is tiny at M<=16, and skipping the VPU bf16-narrowing op wins
-      (ffn_down 31.8 -> 28.5 us; bench_qmm_variants 'f32dot' vs 'rsc');
-    * prefill (large M): narrow to bf16 — the dot itself dominates there
-      and f32 MXU passes would halve prefill throughput."""
-    bk, bn = qf.shape
-    G = scf.shape[0]
-    scf = scf.astype(jnp.float32)
-    w = (qf.reshape(G, bk // G, bn) * scf[:, None, :]).reshape(bk, bn)
-    return w if f32dot else w.astype(jnp.bfloat16)
+_FORMATS = ("q4_0", "q8_0", "q4_k", "q6_k")
 
 
-def _init_acc(acc_ref):
-    @pl.when(pl.program_id(2) == 0)
-    def _():
-        acc_ref[...] = jnp.zeros_like(acc_ref)
+def _sext4(q: jax.Array, hi: bool) -> jax.Array:
+    """Signed 4-bit field of an int32 holding one byte (low or high nibble)."""
+    return (q << (24 if hi else 28)) >> 28
 
 
-def _acc_step(acc_ref, x_ref, w, nsteps, o_ref):
-    x = x_ref[...].astype(w.dtype)
-    acc_ref[...] += jax.lax.dot_general(
-        x, w, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )
-
-    @pl.when(pl.program_id(2) == nsteps - 1)
-    def _():
-        o_ref[...] = acc_ref[...].astype(o_ref.dtype)
+def _bf16(w: jax.Array) -> jax.Array:
+    """[G, r, bn] f32 tile -> [G*r, bn] bf16 dot operand."""
+    G, r, bn = w.shape
+    return w.astype(jnp.bfloat16).reshape(G * r, bn)
 
 
 # ---------------------------------------------------------------------------
-# Kernels — all weight refs are K-major tiles
+# Per-format tile dequantization. Each returns the bf16 weight planes of the
+# K tile starting at superblock `sb`, in the order of the activation planes.
 # ---------------------------------------------------------------------------
 
-def _q4_0_kernel(x_ref, qs_ref, sc_ref, o_ref, acc_ref, *, nsteps, f32dot):
-    # payload is already (q-8) as signed int4: no zero-point term at all
-    _init_acc(acc_ref)
-    w4 = pltpu.bitcast(qs_ref[...], jnp.int4)  # [bk, bn]
-    w = _group_scale(w4.astype(jnp.float32), sc_ref[...], f32dot)
-    _acc_step(acc_ref, x_ref, w, nsteps, o_ref)
+def _planes_q4_0(refs, sb, cols, T):
+    qs_ref, sc_ref = refs  # [K/32, 16, N] u8, [K/32, N] bf16
+    g = pl.ds(sb * 8, 8 * T)
+    q = qs_ref[g, :, cols].astype(jnp.int32)  # [8T, 16, bn]
+    sc = sc_ref[g, cols].astype(jnp.float32)[:, None, :]
+    return [
+        _bf16(_sext4(q, False).astype(jnp.float32) * sc),
+        _bf16(_sext4(q, True).astype(jnp.float32) * sc),
+    ]
 
 
-def _q8_0_kernel(x_ref, qs_ref, sc_ref, o_ref, acc_ref, *, nsteps, f32dot):
-    _init_acc(acc_ref)
-    qf = qs_ref[...].astype(jnp.float32)
-    w = _group_scale(qf, sc_ref[...], f32dot)
-    _acc_step(acc_ref, x_ref, w, nsteps, o_ref)
+def _planes_q8_0(refs, sb, cols, T):
+    qs_ref, sc_ref = refs  # [K/32, 32, N] i8, [K/32, N] bf16
+    g = pl.ds(sb * 8, 8 * T)
+    q = qs_ref[g, :, cols].astype(jnp.float32)  # [8T, 32, bn]
+    sc = sc_ref[g, cols].astype(jnp.float32)[:, None, :]
+    return [_bf16(q * sc)]
 
 
-def _q4_k_kernel(x_ref, xs_ref, qs_ref, meta_ref, o_ref, acc_ref, *, nsteps, f32dot):
-    # w = sc*(q-8) + (8sc - mn) with sc = d*sc6, mn = dmin*mn6 computed
-    # here in f32 from EXACT int8 sub-scales and the exact bf16 hi/lo
-    # d/dmin pair (qtensor.py layout v4) — bit-identical dequant to ggml.
-    # ALL metadata rides ONE int8 stream (24 rows/superblock: 16 sub-
-    # scales + the bf16 quad's lo/hi bytes, rebuilt via a 16-bit bitcast):
-    # the decode kernel is DMA-logistics-bound — each extra side stream
-    # measured ~1.3 us/kernel at ffn_down while the whole metadata math
-    # measured ~0.1 us (tools/bench_q4k_variants.py). The affine offset is
-    # rank-reduced to y += xsum32 @ offs (one small MXU dot).
-    _init_acc(acc_ref)
-    w4 = pltpu.bitcast(qs_ref[...], jnp.int4)
-    bk, bn = w4.shape
-    S = bk // 256
-    mv = meta_ref[...].reshape(S, 24, bn)
-    scm = mv[:, 0:16, :].astype(jnp.float32)
-    lo = mv[:, 16:20, :].astype(jnp.int32) & 0xFF
-    hi = mv[:, 20:24, :].astype(jnp.int32) & 0xFF
-    dmf = pltpu.bitcast(((hi << 8) | lo).astype(jnp.int16), jnp.bfloat16).astype(jnp.float32)
-    d = dmf[:, 0:1, :] + dmf[:, 2:3, :]
-    dmin = dmf[:, 1:2, :] + dmf[:, 3:4, :]
-    sc = (scm[:, 0:8, :] * d).reshape(bk // 32, bn)
-    mn = (scm[:, 8:16, :] * dmin).reshape(bk // 32, bn)
-    offs = 8.0 * sc - mn
-    w = _group_scale(w4.astype(jnp.float32), sc, f32dot)
-    # per-group activation sums arrive as a host-computed side input (an
-    # in-kernel group-indicator MXU dot was tried and re-built its
-    # indicator every grid step: gate_up regressed 66 -> 69 us; Mosaic
-    # cannot lane-split a (bm, bk) -> (bm, bk/32, 32) reshape directly)
-    acc_ref[...] += jax.lax.dot_general(
-        xs_ref[...], offs,
-        (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-    _acc_step(acc_ref, x_ref, w, nsteps, o_ref)
+def _bf16_bits(lo: jax.Array, hi: jax.Array) -> jax.Array:
+    """bf16 value whose low and high bytes are the int8 values lo, hi."""
+    bits = ((hi.astype(jnp.int32) & 0xFF) << 8) | (lo.astype(jnp.int32) & 0xFF)
+    return jax.lax.bitcast_convert_type(
+        bits.astype(jnp.int16), jnp.bfloat16
+    ).astype(jnp.float32)
 
 
-def _q6_k_v4_kernel(x_ref, qs_ref, sc8_ref, d_ref, o_ref, acc_ref, *, nsteps, f32dot):
-    # deep-K q6_k: int8 payload x per-16 effective scale (one convert + one
-    # multiply class). Shape-selected at load: on K>=8192 tensors the v5
-    # 2-bit extraction measures slower than its DMA saving
-    # (qtensor.pack_q6_k_v4 has the numbers).
-    _init_acc(acc_ref)
-    qf = qs_ref[...].astype(jnp.float32)
-    bk, bn = qf.shape
-    S = bk // 256
-    dv = d_ref[...].astype(jnp.float32).reshape(S, 4, bn)
-    d = dv[:, 0:1, :] + dv[:, 1:2, :]
-    sc = (sc8_ref[...].astype(jnp.float32).reshape(S, 16, bn) * d).reshape(bk // 16, bn)
-    w = _group_scale(qf, sc, f32dot)
-    _acc_step(acc_ref, x_ref, w, nsteps, o_ref)
+def _per_group(v: jax.Array, r: int) -> jax.Array:
+    """[T, bn] per-superblock value -> [T*r, bn], repeated r times."""
+    T, bn = v.shape
+    return jnp.broadcast_to(v[:, None, :], (T, r, bn)).reshape(T * r, bn)
 
 
-def _q6_k_kernel(x_ref, xs_ref, ql_ref, qh_ref, sc8_ref, d_ref, o_ref, acc_ref, *, nsteps, f32dot):
-    # layout v5 split-plane (6.75 bpw vs v4's 8.75): the 6-bit value
-    # reconstructs as q = s4 + 16*hi2 - 24 — s4 rides the same one-bitcast
-    # int4 path as q4_0, hi2 is a shift+mask and one CONTIGUOUS concat per
-    # 256-row granule (plane-major qh layout, qtensor.py), and the -24
-    # rank-reduces to one xsum16 @ (-24*sc) MXU dot (the q4_k affine-fold
-    # trick). Effective per-16 scale d*sc8 in f32 from ggml's exact int8
-    # scales and the exact bf16 hi/lo d pair — dequant numerics identical
-    # to v4 (variant choice + measurements: tools/bench_q6k_variants.py).
-    _init_acc(acc_ref)
-    s4 = pltpu.bitcast(ql_ref[...], jnp.int4)
-    bk, bn = s4.shape
-    S = bk // 256
-    dv = d_ref[...].astype(jnp.float32).reshape(S, 4, bn)
-    d = dv[:, 0:1, :] + dv[:, 1:2, :]
-    sc = (sc8_ref[...].astype(jnp.float32).reshape(S, 16, bn) * d).reshape(bk // 16, bn)
-    g = qh_ref[...].astype(jnp.int32).reshape(S, 64, bn)
-    hi2 = jnp.concatenate(
-        [(g >> 0) & 3, (g >> 2) & 3, (g >> 4) & 3, g >> 6], axis=1
-    ).reshape(bk, bn)
-    qf = (s4.astype(jnp.int32) + (hi2 << 4)).astype(jnp.float32)
-    w = _group_scale(qf, sc, f32dot)
-    acc_ref[...] += jax.lax.dot_general(
-        xs_ref[...], -24.0 * sc,
-        (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-    )
-    _acc_step(acc_ref, x_ref, w, nsteps, o_ref)
+def _planes_q4_k(refs, sb, cols, T):
+    # w = sc*q + (8sc - mn), q the stored signed nibble (ggml q - 8),
+    # sc = d*sc6 and mn = dmin*mn6 per 32 elements, from the exact int8
+    # sub-scales and the exact bf16 hi/lo pairs of d and dmin
+    qs_ref, meta_ref = refs  # [K/32, 16, N] u8, [K/256, 24, N] i8
+    sbs = pl.ds(sb, T)
+    sc6 = meta_ref[sbs, pl.ds(0, 8), cols].astype(jnp.float32).reshape(8 * T, -1)
+    mn6 = meta_ref[sbs, pl.ds(8, 8), cols].astype(jnp.float32).reshape(8 * T, -1)
+
+    def quad(j):  # j-th bf16 of [d_hi, dmin_hi, d_lo, dmin_lo]
+        return _bf16_bits(meta_ref[sbs, 16 + j, cols], meta_ref[sbs, 20 + j, cols])
+
+    d = _per_group(quad(0) + quad(2), 8)
+    dmin = _per_group(quad(1) + quad(3), 8)
+    sc = (sc6 * d)[:, None, :]
+    offs = (8.0 * sc6 * d - mn6 * dmin)[:, None, :]
+    q = qs_ref[pl.ds(sb * 8, 8 * T), :, cols].astype(jnp.int32)  # [8T, 16, bn]
+    return [
+        _bf16(_sext4(q, False).astype(jnp.float32) * sc + offs),
+        _bf16(_sext4(q, True).astype(jnp.float32) * sc + offs),
+    ]
 
 
-# ---------------------------------------------------------------------------
-# Launchers
-# ---------------------------------------------------------------------------
+def _planes_q6_k(refs, sb, cols, T):
+    # q = s4 + 16*hi2 - 24 (exact integers); w = q * d * sc8 per 16 elements.
+    # Even element 2r of a superblock (r = 32i + m) keeps its 2-bit field in
+    # bits 2i of qh byte row 2m, the odd element 2r+1 in row 2m+1.
+    ql_ref, qh_ref, sc8_ref, d_ref = refs
+    # [K/16, 8, N] u8, [K/256, 32, 2, N] u8, [K/16, N] i8, [K/256, 4, N] bf16
+    sbs = pl.ds(sb, T)
+    d = d_ref[sbs, 0, cols].astype(jnp.float32) + d_ref[sbs, 1, cols].astype(jnp.float32)
+    sc = (sc8_ref[pl.ds(sb * 16, 16 * T), cols].astype(jnp.float32) * _per_group(d, 16))
+    sc = sc[:, None, :]  # [16T, 1, bn]
+    q = ql_ref[pl.ds(sb * 16, 16 * T), :, cols].astype(jnp.int32)  # [16T, 8, bn]
+    shift = 2 * jax.lax.broadcasted_iota(jnp.int32, (1, 4, 1, 1), 1)
+    planes = []
+    for odd in (False, True):
+        qh = qh_ref[sbs, :, int(odd), cols].astype(jnp.int32)  # [T, 32, bn]
+        hi2 = (qh[:, None, :, :] >> shift) & 3  # [T, 4, 32, bn]
+        bn = hi2.shape[-1]
+        hi2 = hi2.reshape(16 * T, 8, bn)
+        v = _sext4(q, odd) + 16 * hi2 - 24
+        planes.append(_bf16(v.astype(jnp.float32) * sc))
+    return planes
 
-_FMT_ARRAYS = {
-    "q4_0": ("qs", "scales"),
-    "q8_0": ("qs", "scales"),
-    "q4_k": ("qs", "meta"),
-    "q6_k": ("ql", "qh", "sc8", "d"),
-    "q6_k_v4": ("qs", "sc8", "d"),
+
+def _views(qt: QTensor) -> list[jax.Array]:
+    """Free reshapes of the device arrays into the kernels' block views."""
+    N, K = qt.shape
+    a = qt.arrays
+    if qt.fmt == "q4_0":
+        return [a["qs"].reshape(K // 32, 16, N), a["scales"]]
+    if qt.fmt == "q8_0":
+        return [a["qs"].reshape(K // 32, 32, N), a["scales"]]
+    if qt.fmt == "q4_k":
+        return [a["qs"].reshape(K // 32, 16, N), a["meta"].reshape(K // _SB, 24, N)]
+    if qt.fmt == "q6_k":
+        return [
+            a["ql"].reshape(K // 16, 8, N),
+            a["qh"].reshape(K // _SB, 32, 2, N),
+            a["sc8"],
+            a["d"].reshape(K // _SB, 4, N),
+        ]
+    raise NotImplementedError(qt.fmt)
+
+
+_PLANES = {
+    "q4_0": _planes_q4_0,
+    "q8_0": _planes_q8_0,
+    "q4_k": _planes_q4_k,
+    "q6_k": _planes_q6_k,
 }
-_FMT_KERNELS = {
-    "q4_0": _q4_0_kernel,
-    "q8_0": _q8_0_kernel,
-    "q4_k": _q4_k_kernel,
-    "q6_k": _q6_k_kernel,
-    "q6_k_v4": _q6_k_v4_kernel,
-}
-# Minimum K-tile alignment per format: every metadata array's K-tile
-# (bk * rows/K sublanes) must be a multiple of its dtype's native sublane
-# tile — 16 for bf16, 32 for int8. Binding constraints:
-#   q4_0/q8_0: bf16 scales [K/32, N]  -> bk % 512 == 0
-#   q4_k: int8 meta [3K/32, N]        -> 3bk/32 % 32 -> bk % 1024 == 0
-#   q6_k: bf16 d [K/64, N]            -> bk % 1024 == 0
-_FMT_BK_ALIGN = {"q4_0": 512, "q8_0": 512, "q4_k": 1024, "q6_k": 1024, "q6_k_v4": 1024}
-# rank-reduced affine fold: group size of the xsum side input (None = none)
-# (q6_k v5: the -24 reconstruction offset folds at per-16 granularity)
-_FMT_XSUM_GROUP = {"q4_0": None, "q8_0": None, "q4_k": 32, "q6_k": 16, "q6_k_v4": None}
 
 
-def _pick_bk(K: int, fmt: str) -> int | None:
-    # tall K-tiles win at decode (fewer accumulator revisits / bigger MXU
-    # feeds): 2048 > 1024 > 512 measured on the Gemma-2B shapes. Non-power-
-    # of-two multiples serve Gemma-7B's K=3072 (bk=3072 beats falling to
-    # 1024); every candidate must satisfy the per-format metadata tile
-    # alignment (_FMT_BK_ALIGN).
-    align = _FMT_BK_ALIGN[fmt]
-    for bk in (2048, 3072, 1024, 1536, 512, 768, 256):
-        if bk % align == 0 and K % bk == 0:
-            return bk
-    return None
+def _kernel(*refs, fmt, n_x, bm, bn, n_iter, m_true):
+    x_refs = refs[:n_x]
+    w_refs = refs[n_x:-1]
+    o_ref = refs[-1]
+    m, n, s = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    rows = pl.ds(m * bm, bm)
+    cols = pl.ds(n * bn, bn)
+    T = _SB_PER_TILE
+    kx = T * _SB // n_x  # columns of each activation plane per K tile
+
+    def body(i, acc):
+        sb = (s * n_iter + i) * T
+        planes = _PLANES[fmt](w_refs, sb, cols, T)
+        for x_ref, w in zip(x_refs, planes):
+            acc += pl.dot(x_ref[rows, pl.ds(sb * _SB // n_x, kx)], w)
+        return acc
+
+    acc = jax.lax.fori_loop(0, n_iter, body, jnp.zeros((bm, bn), jnp.float32))
+    row_ids = m * bm + jax.lax.broadcasted_iota(jnp.int32, (bm, bn), 0)
+    plgpu.store(o_ref.at[s, rows, cols], acc, mask=row_ids < m_true)
 
 
-def _pick_bn(N: int, fmt: str = "q4_0") -> int | None:
-    # bn = N (up to 2048) makes each weight block a fully contiguous row
-    # span of the [K-granule, N] array — measured at the ffn_down decode
-    # shape: 31.5 us at bn=2048 vs 38.0 at bn=1024 (bench_qmm_variants);
-    # 1536 serves N=3072 (Gemma-7B attn_out) better than 1024. Very wide
-    # N (the 258048-row lm_head) prefers 4096 — half the n-steps, measured
-    # 453.8 -> 434.7 us (tools/bench_bn_sweep.py); mid-size N does not
-    # (gate_up 62.8 -> 63.6).
-    # 4-bit formats only: int8-payload tiles at bn=4096 are 2x the bytes
-    # (8 MB K+V-side per step) and were not a measured win
-    if fmt in ("q4_0", "q4_k") and N >= 65536 and N % 4096 == 0:
-        return 4096
-    for bn in (2048, 1536, 1024, 512, 256, 128):
-        if N % bn == 0:
-            return bn
-    return None
+def _split_count(n_blocks: int, n_tiles: int) -> int:
+    """K splits: the largest power of two that keeps the program count near
+    _TARGET_PROGRAMS and divides the K tiles evenly."""
+    s = 1
+    while (
+        n_blocks * s * 2 <= _TARGET_PROGRAMS
+        and n_tiles % (s * 2) == 0
+    ):
+        s *= 2
+    return s
 
 
-_WARNED_FALLBACK: set[tuple[str, tuple[int, int]]] = set()
-
-
-def _warn_fallback(fmt: str, shape: tuple[int, int]) -> None:
-    key = (fmt, shape)
-    if key in _WARNED_FALLBACK:
-        return
-    _WARNED_FALLBACK.add(key)
-    import warnings
-
-    warnings.warn(
-        f"QTensor {fmt}{list(shape)} is not kernel-tile-compatible; using the "
-        f"XLA dequant+dot fallback (slower). K must allow a "
-        f"{_FMT_BK_ALIGN[fmt]}-multiple divisor tile and N a 128+ "
-        f"divisor tile.",
-        stacklevel=3,
+@functools.partial(jax.jit, static_argnames=("fmt", "interpret"))
+def _qmm_call(x2d, views, fmt, interpret):
+    M, K = x2d.shape
+    N = views[0].shape[-1]
+    bm = _MIN_M
+    while bm < min(M, KERNEL_MAX_M):
+        bm *= 2
+    Mp = -(-M // bm) * bm
+    x = jnp.pad(x2d.astype(jnp.bfloat16), ((0, Mp - M), (0, 0)))
+    xs = [x] if fmt == "q8_0" else [x[:, 0::2], x[:, 1::2]]
+    n_tiles = K // (_SB * _SB_PER_TILE)
+    n_blocks = (Mp // bm) * (N // _BN)
+    splits = _split_count(n_blocks, n_tiles)
+    kernel = functools.partial(
+        _kernel, fmt=fmt, n_x=len(xs), bm=bm, bn=_BN,
+        n_iter=n_tiles // splits, m_true=M,
     )
+    part = pl.pallas_call(
+        kernel,
+        grid=(Mp // bm, N // _BN, splits),
+        out_shape=jax.ShapeDtypeStruct((splits, Mp, N), jnp.float32),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
+        ),
+        interpret=interpret,
+        name=f"qmm_{fmt}",
+    )(*xs, *views)
+    return part[:, :M].sum(axis=0)
+
+
+def tiles(qt: QTensor) -> bool:
+    """Shapes the kernel takes: whole superblock tiles along K and whole
+    column slabs along N (any M; the dispatch adds the M threshold)."""
+    N, K = qt.shape
+    return qt.fmt in _PLANES and K % (_SB * _SB_PER_TILE) == 0 and N % _BN == 0
 
 
 def supports(x_shape: tuple[int, ...], qt: QTensor) -> bool:
-    N, K = qt.shape
-    return (
-        qt.fmt in _FMT_BK_ALIGN
-        and _pick_bk(K, qt.fmt) is not None
-        and _pick_bn(N, qt.fmt) is not None
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("fmt", "shape", "keys", "interpret"))
-def _qmm_call(x2d, xs, arrays, fmt, shape, keys, interpret):
-    N, K = shape
-    M = x2d.shape[0]
-    bm = M  # caller already padded/bucketed M
-    bk = _pick_bk(K, fmt)
-    bn = _pick_bn(N, fmt)
-    nsteps = K // bk
-    grid = (M // bm, N // bn, nsteps)
-
-    # every array is [K*frac, N]: tile rows by the same K fraction, cols by bn
-    def wspec(arr):
-        rows = arr.shape[0]
-        tile_r = rows * bk // K
-        return pl.BlockSpec((tile_r, bn), lambda m, n, k: (k, n))
-
-    in_specs = [pl.BlockSpec((bm, bk), lambda m, n, k: (m, k))]
-    inputs = [x2d]
-    if xs is not None:
-        # per-group activation sums for the affine fold, stored transposed
-        # [K/g, M]: the K-tiled block (bk/g, M) then satisfies Mosaic's
-        # (8, 128-or-full) tiling rule for any decode/prefill M
-        g = K // xs.shape[0]
-        in_specs.append(pl.BlockSpec((bk // g, M), lambda m, n, k: (k, m)))
-        inputs.append(xs)
-    in_specs += [wspec(arrays[k]) for k in keys]
-    inputs += [arrays[k] for k in keys]
-
-    flops = 2 * M * N * K
-    bytes_accessed = sum(int(arrays[k].size) * arrays[k].dtype.itemsize for k in keys)
-    # f32 MXU operands at decode M (skips the bf16 narrow); bf16 at prefill
-    # M where the dot dominates (f32 passes would halve prefill rate)
-    # f32 MXU operands only at the M=8 decode bucket (skipping the bf16
-    # narrow wins there); M=16+ (speculative verify, prefill tails) pays
-    # multiple f32 MXU passes and prefers bf16
-    kernel = functools.partial(_FMT_KERNELS[fmt], nsteps=nsteps, f32dot=M <= 8)
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((bm, bn), lambda m, n, k: (m, n)),
-        out_shape=jax.ShapeDtypeStruct((M, N), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops, bytes_accessed=bytes_accessed, transcendentals=0
-        ),
-        interpret=interpret,
-    )(*inputs)
-    return out
+    """Whether matmul() takes the kernel: the weight tiles and M (rows of
+    x) is at most KERNEL_MAX_M."""
+    M = 1
+    for d in x_shape[:-1]:
+        M *= d
+    return tiles(qt) and M <= KERNEL_MAX_M
 
 
 def quant_matmul(x: jax.Array, qt: QTensor) -> jax.Array:
-    """y = x @ dequant(qt).T ; x [..., K] -> y [..., N] (f32)."""
+    """y = x @ dequant(qt).T through the kernel; x [..., K] -> y [..., N] f32."""
     N, K = qt.shape
     *lead, _ = x.shape
-    M = 1
-    for d in lead:
-        M *= d
-    x2d = x.reshape(M, K)
-    # bucket M to a tile-friendly size. The cap bounds VMEM; prefill wants
-    # it high — every M-step re-streams (and re-dequantizes) the whole
-    # weight tile sweep, so M/bm is a direct multiplier on prefill HBM
-    # traffic.
-    bm = MIN_SUBLANE
-    while bm < M:
-        bm *= 2
-    bm = min(bm, int(os.environ.get("GEMMA_TPU_PREFILL_BM", "512")))
-    Mp = ((M + bm - 1) // bm) * bm
-    if Mp != M:
-        x2d = jnp.pad(x2d, ((0, Mp - M), (0, 0)))
-    g = _FMT_XSUM_GROUP[qt.fmt]
-    xs = (
-        x2d.astype(jnp.float32).reshape(Mp, K // g, g).sum(-1).T
-        if g is not None
-        else None
-    )
-    keys = _FMT_ARRAYS[qt.fmt]
-    out = _qmm_call(x2d, xs, qt.arrays, qt.fmt, qt.shape, keys, _interpret())
-    if Mp != M:
-        out = out[:M]
+    out = _qmm_call(x.reshape(-1, K), _views(qt), qt.fmt, _backend.interpret())
     return out.reshape(*lead, N)
 
 
-def register_all() -> None:
-    """Install the fused kernels as the QTensor matmul path (with per-call
-    shape gating; incompatible shapes fall back inside ops.linear)."""
-
-    def make(fmt):
-        def fn(x, qt):
-            # f32 activations = evaluation-precision mode (the Δppl gate):
-            # dequantize in f32 and dot in f32, exactly ggml's arithmetic.
-            if x.dtype == jnp.float32:
-                from ..quant.qtensor import dequant_t
-
-                return jnp.dot(
-                    x, dequant_t(qt, jnp.float32), preferred_element_type=jnp.float32
-                )
-            # On non-TPU backends interpret-mode kernels are orders of
-            # magnitude slower than the XLA fallback; only kernel tests opt
-            # in via GEMMA_TPU_INTERPRET_KERNELS=1.
-            use_interpret = os.environ.get("GEMMA_TPU_INTERPRET_KERNELS") == "1"
-            if (_interpret() and not use_interpret) or not supports(x.shape, qt):
-                if not _interpret():
-                    # on TPU this is a silent ~10x perf cliff: surface it
-                    # once per (fmt, shape) at trace time
-                    _warn_fallback(qt.fmt, qt.shape)
-                from ..quant.qtensor import dequant_t
-
-                return jnp.dot(
-                    x, dequant_t(qt, jnp.bfloat16), preferred_element_type=jnp.float32
-                )
-            return quant_matmul(x, qt)
-
-        return fn
-
-    for fmt in _FMT_KERNELS:
-        _register_kernel(fmt, make(fmt))
+def plain_matmul(x: jax.Array, qt: QTensor) -> jax.Array:
+    """The plain path: dequantize, then one XLA dot. f32 activations are
+    the evaluation-precision mode (the Δppl gate): dequantize in f32 and
+    multiply at full f32 precision, ggml's own arithmetic."""
+    if x.dtype == jnp.float32:
+        return jnp.dot(
+            x, dequant_t(qt, jnp.float32),
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )
+    return jnp.dot(x, dequant_t(qt, jnp.bfloat16), preferred_element_type=jnp.float32)
 
 
-register_all()
+_WARNED: set[tuple[str, tuple[int, int]]] = set()
+
+
+def matmul(x: jax.Array, qt: QTensor) -> tuple[jax.Array, str]:
+    """x @ dequant(qt).T by the kernel where it runs and the shape tiles,
+    by the plain path otherwise. Returns (y f32, the path taken)."""
+    if x.dtype == jnp.float32 or not _backend.use_kernels("matmul"):
+        return plain_matmul(x, qt), "plain"
+    if not tiles(qt):
+        if (qt.fmt, qt.shape) not in _WARNED:
+            _WARNED.add((qt.fmt, qt.shape))
+            warnings.warn(
+                f"QTensor {qt.fmt}{list(qt.shape)} does not tile for the "
+                f"kernel (K % {_SB}, N % {_BN}); using dequant + dot",
+                stacklevel=3,
+            )
+        return plain_matmul(x, qt), "plain"
+    if not supports(x.shape, qt):  # prefill M: dequant + cuBLAS wins
+        return plain_matmul(x, qt), "plain"
+    return quant_matmul(x, qt), "kernel"

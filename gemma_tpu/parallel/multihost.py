@@ -1,11 +1,11 @@
 """Multi-host serving: DCN data axis, cross-host batching, role split.
 
 Config 5 of BASELINE.json (the reference is strictly single-process —
-SURVEY.md §2). Layout rules for a TPU pod slice:
+SURVEY.md §2). Layout rules for a multi-host cluster:
 
-* the **model (TP) axis stays inside one host's chips** so its two psums
-  per layer and the logits all-gather ride ICI;
-* the **data axis spans hosts** over DCN — the only cross-host traffic is
+* the **model (TP) axis stays inside one host's cards** so its two psums
+  per layer and the logits all-gather ride NVLink;
+* the **data axis spans hosts** over the network — the only cross-host traffic is
   then batch-parallel (none per decode step), which is what makes ≥85 %
   scaling efficiency reachable;
 * requests are routed to hosts by stable hash (cross-host batching): each
@@ -21,7 +21,7 @@ SURVEY.md §2). Layout rules for a TPU pod slice:
 
 Single-host fallback: everything degrades to the plain (data, model) mesh
 — the harness in tools/bench_scaling.py measures scaling on a virtual CPU
-mesh the same way it would on a pod.
+mesh the same way it would on a cluster.
 """
 from __future__ import annotations
 
@@ -41,15 +41,21 @@ def initialize(
     process_id: int | None = None,
 ) -> None:
     """Bring up the JAX distributed runtime (no-op if already up or
-    single-process). On TPU pods the three args are auto-detected from the
-    environment; pass them explicitly elsewhere."""
+    single-process). Without arguments JAX auto-detects a cluster from the
+    environment (SLURM, Open MPI, ...); where none is found the process
+    runs alone. On a machine JAX knows nothing about, pass
+    `coordinator_address` (e.g. "localhost:<port>"), `num_processes` and
+    `process_id` explicitly."""
     if jax.process_count() > 1:
         return  # already initialized
     if coordinator_address is None and num_processes is None:
         try:
             jax.distributed.initialize()
-        except Exception:
-            return  # single-process / unsupported platform: fine
+        except ValueError as e:
+            # the one error of a process with no cluster around it
+            if "coordinator_address should be defined" not in str(e):
+                raise
+            return
     else:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

@@ -7,9 +7,9 @@ kernel: TP decode gets no benefit from the fused kernels. This module is
 the latency-critical alternative SURVEY.md §2 mandates ("explicit
 psum/all_gather/reduce_scatter in shard_map for the decode path"): weights
 are laid out so each device's shard_map-local view IS a self-contained
-Megatron shard, the Pallas kernels run on those local QTensors unchanged,
-and the only cross-device traffic is one psum after attn_output, one after
-ffn_down (models/gemma.py `tp_axis`) and one logits all-gather — the TPU
+Megatron shard, the kernels run on those local QTensors unchanged, and the
+only cross-device traffic is one psum after attn_output, one after ffn_down
+(models/gemma.py `tp_axis`) and one logits all-gather — the multi-device
 generalization of the reference's async offload + join
 (/root/reference/src/hpc.cpp:259-277).
 
@@ -276,7 +276,7 @@ class TPEngine:
     def __init__(self, cfg: GemmaConfig, params: Params, mesh: Mesh,
                  max_seq_len: int = 512, max_batch: int = 1,
                  donate_cache: bool = True, kv_quantized: bool = False,
-                 paged: bool = False, page_size: int | None = None,
+                 paged: bool = False, page_size: int = 64,
                  n_pages: int | None = None):
         shard_map = _shard_map()
 
@@ -286,7 +286,7 @@ class TPEngine:
         self.lcfg = local_config(cfg, self.tp)
         self.max_seq_len = max_seq_len
         self.max_batch = max_batch
-        from ..runtime.engine import Engine, EngineConfig
+        from ..runtime.engine import EngineConfig
 
         if paged and mesh.shape[DATA_AXIS] > 1:
             raise ValueError(
@@ -297,10 +297,6 @@ class TPEngine:
                                  donate_cache=donate_cache, paged=paged,
                                  page_size=page_size, n_pages=n_pages,
                                  kv_quantized=kv_quantized)
-        if self.ecfg.page_size is None:
-            self.ecfg = dataclasses.replace(
-                self.ecfg, page_size=Engine._auto_page_size(cfg, self.ecfg)
-            )
         self.params = build_tp_params(params, cfg, mesh)
         pspecs = _param_specs(self.params, cfg, mesh)
 

@@ -1,10 +1,10 @@
-"""Mesh + sharding rules: tensor/data-parallel layout over ICI.
+"""Mesh + sharding rules: tensor/data-parallel layout over the device links.
 
 The reference's only "distribution" is a static 0.9 CPU/iGPU row split of
 each matmul plus a 4-thread row fan-out (`/root/reference/src/hpc.cpp:
-245-269`; SURVEY.md §2 parallelism checklist). The TPU-native generalization:
+245-269`; SURVEY.md §2 parallelism checklist). The generalization here:
 a logical ``(data, model)`` device mesh; weights annotated with
-`NamedSharding` so GSPMD emits all-gather/reduce-scatter over ICI; KV-cache
+`NamedSharding` so GSPMD emits all-gather/reduce-scatter (NCCL); KV-cache
 sharded over batch (data) and KV heads (model, when divisible).
 
 Megatron-style layout per decoder layer — one psum per block, inserted by

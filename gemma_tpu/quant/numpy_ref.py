@@ -1,6 +1,6 @@
 """Reference (numpy, host-side) codecs for ggml block-quant formats.
 
-These are the ground truth the TPU kernels are validated against — the role
+These are the ground truth the device kernels are validated against — the role
 ggml-quants.c's `dequantize_row_*` / `quantize_row_*` play for the reference
 engine (consumed via `ggml_vec_dot_t` at `/root/reference/src/hpc.cpp:33-37`
 and the block structs mirrored at `/root/reference/src/kernals.cl:13-34`).

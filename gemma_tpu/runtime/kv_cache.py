@@ -1,29 +1,25 @@
 """KV-cache: fixed-capacity, jit-carried, optionally int8-quantized.
 
-TPU-native replacement for the reference's per-layer ggml cache tensors +
+Counterpart of the reference's per-layer ggml cache tensors +
 head/n bookkeeping (`/root/reference/src/gemma_model.h:75-97`,
 `gemma_model.cpp:361-401,428-436`). Differences by design:
 
 * **per-layer buffers** (a tuple of L arrays per K/V), like the reference's
-  per-layer tensors — but for a TPU-specific reason, found by measurement
-  (tools/probe_cache_cost.py): with one stacked [L, ...] array, every decode
-  step both scatter-writes `k[layer]` and feeds the same slice to the Pallas
-  attention custom call, and XLA cannot alias a *slice* of a donated buffer
-  into a custom call — it materializes copies that scale with the ALLOCATED
-  cache, not the live prefix (7B geometry: 2.9 ms/step at S=2048 ballooning
-  to 7.2 ms at S=4096 for identical live work; per-layer buffers measure
-  1.43/1.45 ms — flat). With per-layer leaves, donation aliases each buffer
-  in place and decode cost is allocation-independent;
-* layout is **[B, H_kv, S, D]** per layer: the sequence dim sits
-  second-to-last so Pallas attention kernels tile (bs, D) blocks directly
-  (Mosaic requires the last two block dims to be tileable) and the flash
-  launcher needs no per-step transpose of the cache;
+  per-layer tensors: every decode step both writes `k[layer]` and feeds it
+  to the attention kernel's custom call, and XLA cannot alias a *slice* of
+  one donated stacked [L, ...] buffer into a custom call — it would copy
+  slabs the size of the allocation each step. With per-layer leaves,
+  donation aliases each buffer in place and decode cost does not grow
+  with the allocation;
+* layout is **[B, H_kv, S, D]** per layer: the decode kernel reads (bs, D)
+  blocks of one (sequence, head) contiguously, with no transpose of the
+  cache;
 * per-sequence valid lengths (`length[b]`) instead of a single global
   `head`/`n` — multiple independent sequences batch together (the
   reference's `cells`/seq-id machinery is dead code; here it's real);
 * writes are `dynamic_update_slice` / scatter under jit, not graph-rebuilt
   views (`gemma_model.cpp:499-518`);
-* optional int8 per-(token, head) quantization halving HBM traffic.
+* optional int8 per-(token, head) quantization halving cache traffic.
 
 Cross-boundary interfaces (insert_sequence input, extract_seq output, the
 kv_transfer wire format) remain STACKED [L, H, T, D] numpy/jax arrays —

@@ -9,20 +9,17 @@ reservation) and admission is O(pages-needed).
 
 Device state (jit-carried pytree):
     k_pages, v_pages: tuples of L per-layer pools [n_pages, H_kv,
-                      page_size, D]  (page_size sits second-to-last so the
-                      paged Pallas kernel tiles (ps, D) blocks directly;
-                      per-layer buffers for the same XLA-aliasing reason as
-                      the dense cache — a slice of one stacked donated
-                      [L, ...] pool cannot alias into the Pallas custom
-                      call and XLA copies pool-sized slabs per step, see
-                      runtime/kv_cache.py and tools/probe_cache_cost.py)
+                      page_size, D]  (one (ps, D) page of one head is one
+                      contiguous block of the decode kernel; per-layer
+                      buffers for the same XLA-aliasing reason as the dense
+                      cache, see runtime/kv_cache.py)
     page_table:       i32 [B, max_pages_per_seq]  (physical page ids)
     length:           i32 [B]
 
 The host-side `PageAllocator` owns the free list (the scheduler calls it at
-admit/finish). `gather_layer` materializes a dense [B, S, H, D] view for the
-XLA attention fallback; the Pallas paged-attention kernel (ops/
-paged_attention.py) reads pages directly via the block table instead.
+admit/finish). `gather_layer` materializes a dense [B, H, S, D] view for the
+plain attention path; the decode kernel (ops/attention.py) reads pages
+directly via the block table instead.
 
 Int8 mode mirrors runtime.kv_cache: per-(position, head) scales.
 """
@@ -172,8 +169,8 @@ class PagedKVCache:
 
     # -- reads -------------------------------------------------------------
     def gather_layer(self, layer: int) -> tuple[jax.Array, jax.Array]:
-        """Dense [B, H, S, D] view via block-table gather (fallback path;
-        the paged Pallas kernel avoids this materialization)."""
+        """Dense [B, H, S, D] view via block-table gather (plain path; the
+        decode kernel avoids this materialization)."""
         B, maxp = self.page_table.shape
         ps = self.page_size
 

@@ -38,6 +38,68 @@ TINY_GEMMA3_CONFIG = GemmaConfig(
 )
 
 
+def random_matrix(rng, rows: int, cols: int, fmt: str, fill: str = "random"):
+    """One [rows, cols] = [out, in] weight in device layout: a QTensor of
+    format `fmt` with random payloads and small positive scales, or a bf16
+    array for fmt='bf16'. With fill='zeros' payloads are zeros (fast);
+    scales are still nonzero so nothing degenerates."""
+    import jax.numpy as jnp
+
+    from .quant.qtensor import QTensor, store_f16
+
+    if fmt == "bf16":
+        if fill == "zeros":
+            return np.zeros((rows, cols), dtype=jnp.bfloat16)
+        return (rng.standard_normal((rows, cols), dtype=np.float32) * 0.05).astype(jnp.bfloat16)
+
+    def payload(shape, dtype):
+        if fill == "zeros":
+            return np.zeros(shape, dtype)
+        if np.issubdtype(dtype, np.unsignedinteger):
+            return rng.integers(0, 256, size=shape, dtype=np.uint8).view(dtype)
+        return rng.integers(-100, 100, size=shape, dtype=np.int8).view(dtype)
+
+    def scales(shape):
+        # f16-grid values on the bf16 storage grid (qtensor.SCALE_DTYPE)
+        return store_f16((rng.uniform(0.5, 1.0, size=shape) * 0.01).astype(np.float32))
+
+    def sub_scales(shape):
+        # exact int8 sub-scales (K-quant layout): small nonzero ints
+        if fill == "zeros":
+            return np.ones(shape, np.int8)
+        return rng.integers(1, 64, size=shape, dtype=np.int8)
+
+    # device layout is K-major: arrays are [K-granule, N] (see qtensor.py)
+    if fmt == "q4_0":
+        arrays = {"qs": payload((cols // 2, rows), np.uint8), "scales": scales((cols // 32, rows))}
+    elif fmt == "q8_0":
+        arrays = {"qs": payload((cols, rows), np.int8), "scales": scales((cols // 32, rows))}
+    elif fmt == "q4_k":
+        # meta rows per superblock: 16 int8 sub-scales + the bf16
+        # d/dmin quad's lo/hi byte rows (see qtensor.pack_q4_k)
+        n_sb = cols // 256
+        dmu = scales((n_sb, 4, rows)).view(np.uint16)
+        meta = np.concatenate(
+            [
+                sub_scales((n_sb, 16, rows)).astype(np.int8),
+                (dmu & 0xFF).astype(np.int8),
+                (dmu >> 8).astype(np.int8),
+            ],
+            axis=1,
+        ).reshape(3 * cols // 32, rows)
+        arrays = {"qs": payload((cols // 2, rows), np.uint8), "meta": meta}
+    elif fmt == "q6_k":
+        arrays = {
+            "ql": payload((cols // 2, rows), np.uint8),
+            "qh": payload((cols // 4, rows), np.uint8),
+            "sc8": sub_scales((cols // 16, rows)),
+            "d": scales((cols // 64, rows)),
+        }
+    else:
+        raise ValueError(fmt)
+    return QTensor(fmt, arrays)
+
+
 def make_params(
     cfg: GemmaConfig,
     fmt: str = "q4_0",
@@ -51,87 +113,14 @@ def make_params(
     QTensor format name, 'bf16', or 'q4_k_m' — the mixed llama.cpp Q4_K_M
     recipe the reference actually serves (/root/reference/src/app.cpp:36):
     q4_k matrices with q6_k attn_v and the q6_k tied embedding/output head.
-    With fill='zeros' payloads are zeros (fast); scales are still nonzero
-    so nothing degenerates.
+    Weights come from `random_matrix`.
     """
-    import jax.numpy as jnp
-
-    from .quant.qtensor import QTensor
-
     rng = np.random.default_rng(seed)
     mixed = fmt == "q4_k_m"
 
     def mat(rows: int, cols: int, fmt_override: str | None = None):
         fmt_ = fmt_override or ("q4_k" if mixed else fmt)
-        return _mat(rows, cols, fmt_)
-
-    def _mat(rows: int, cols: int, fmt):
-        if fmt == "bf16":
-            if fill == "zeros":
-                return np.zeros((rows, cols), dtype=jnp.bfloat16)
-            return (rng.standard_normal((rows, cols), dtype=np.float32) * 0.05).astype(jnp.bfloat16)
-
-        def payload(shape, dtype):
-            if fill == "zeros":
-                return np.zeros(shape, dtype)
-            if np.issubdtype(dtype, np.unsignedinteger):
-                return rng.integers(0, 256, size=shape, dtype=np.uint8).view(dtype)
-            return rng.integers(-100, 100, size=shape, dtype=np.int8).view(dtype)
-
-        def scales(shape):
-            # f16-grid values on the bf16 storage grid (qtensor.SCALE_DTYPE)
-            from .quant.qtensor import store_f16
-
-            return store_f16((rng.uniform(0.5, 1.0, size=shape) * 0.01).astype(np.float32))
-
-        def sub_scales(shape):
-            # exact int8 sub-scales (K-quant v4 layout): small nonzero ints
-            if fill == "zeros":
-                return np.ones(shape, np.int8)
-            return rng.integers(1, 64, size=shape, dtype=np.int8)
-
-        # device layout is K-major: arrays are [K-granule, N] (see qtensor.py)
-        if fmt == "q4_0":
-            arrays = {"qs": payload((cols // 2, rows), np.uint8), "scales": scales((cols // 32, rows))}
-        elif fmt == "q8_0":
-            arrays = {"qs": payload((cols, rows), np.int8), "scales": scales((cols // 32, rows))}
-        elif fmt == "q4_k":
-            # meta rows per superblock: 16 int8 sub-scales + the bf16
-            # d/dmin quad's lo/hi byte rows (see qtensor.pack_q4_k)
-            n_sb = cols // 256
-            dmu = scales((n_sb, 4, rows)).view(np.uint16)
-            meta = np.concatenate(
-                [
-                    sub_scales((n_sb, 16, rows)).astype(np.int8),
-                    (dmu & 0xFF).astype(np.int8),
-                    (dmu >> 8).astype(np.int8),
-                ],
-                axis=1,
-            ).reshape(3 * cols // 32, rows)
-            arrays = {"qs": payload((cols // 2, rows), np.uint8), "meta": meta}
-        elif fmt == "q6_k":
-            # per-shape layout, matching qtensor.from_ggml: deep-K tensors
-            # keep the int8 payload ("q6_k_v4"), others the v5 split-plane
-            from .quant.qtensor import q6k_deep_k
-
-            deep = q6k_deep_k()
-            if deep and cols >= deep:
-                fmt = "q6_k_v4"
-                arrays = {
-                    "qs": payload((cols, rows), np.int8),
-                    "sc8": sub_scales((cols // 16, rows)),
-                    "d": scales((cols // 64, rows)),
-                }
-            else:
-                arrays = {
-                    "ql": payload((cols // 2, rows), np.uint8),
-                    "qh": payload((cols // 4, rows), np.uint8),
-                    "sc8": sub_scales((cols // 16, rows)),
-                    "d": scales((cols // 64, rows)),
-                }
-        else:
-            raise ValueError(fmt)
-        return QTensor(fmt, arrays)
+        return random_matrix(rng, rows, cols, fmt_, fill)
 
     def norm(d):
         return np.ones(d, np.float32)

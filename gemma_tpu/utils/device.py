@@ -1,32 +1,45 @@
-"""Per-chip peak numbers for roofline accounting.
+"""Peak rates of the accelerators the roofline numbers are divided by.
 
-One table shared by bench.py, the profiler and the CLI (the reference has
-no equivalent — its only hardware knowledge is the pinned OpenCL device
-name, `/root/reference/src/macro.h:25-26`)."""
+One table, keyed by the `device_kind` JAX reports, shared by bench.py, the
+profiler and the CLI (the reference has no equivalent — its only hardware
+knowledge is the pinned OpenCL device name, `/root/reference/src/macro.h:25-26`).
+A device that is not in the table is an error, not a default.
+
+Source: NVIDIA H100 Tensor Core GPU data sheet — dense rates, without
+sparsity, at the part's full power limit.
+"""
 from __future__ import annotations
 
-# device_kind substring -> (HBM GB/s, peak bf16 FLOP/s)
-_PEAKS = [
-    ("v5 lite", (819.0, 197e12)),
-    ("v5e", (819.0, 197e12)),
-    ("v5p", (2765.0, 459e12)),
-    ("v5", (2765.0, 459e12)),
-    ("v4", (1228.0, 275e12)),
-    ("v6", (1640.0, 918e12)),
-    ("trillium", (1640.0, 918e12)),
-]
+from typing import NamedTuple
 
 
-def device_peaks() -> tuple[float, float]:
-    """(HBM GB/s, peak FLOP/s) for the first visible device."""
+class Peaks(NamedTuple):
+    hbm_gbs: float  # device memory bandwidth, GB/s
+    bf16_flops: float  # dense bf16 tensor-core rate, FLOP/s
+
+
+PEAKS: dict[str, Peaks] = {
+    "NVIDIA H100 80GB HBM3": Peaks(3350.0, 989e12),  # H100 SXM5
+    "NVIDIA H100 PCIe": Peaks(2000.0, 756e12),
+}
+
+
+class UnknownDevice(LookupError):
+    pass
+
+
+def peaks_for(kind: str) -> Peaks:
+    try:
+        return PEAKS[kind]
+    except KeyError:
+        raise UnknownDevice(
+            f"no peak rates for device kind {kind!r}; add it to "
+            f"gemma_tpu.utils.device.PEAKS with its source"
+        ) from None
+
+
+def device_peaks() -> Peaks:
+    """Peaks of the first visible device; raises UnknownDevice if absent."""
     import jax
 
-    kind = getattr(jax.devices()[0], "device_kind", "").lower()
-    for sub, peaks in _PEAKS:
-        if sub in kind:
-            return peaks
-    return (100.0, 1e12)  # CPU / unknown: nominal
-
-
-def hbm_bandwidth_gbs() -> float:
-    return device_peaks()[0]
+    return peaks_for(jax.devices()[0].device_kind)

@@ -1,6 +1,6 @@
 """Profiling: named spans, counters, and a per-kernel roofline tracer.
 
-TPU-native replacement for the reference's interval profiler
+Counterpart of the reference's interval profiler
 (`/root/reference/src/profiling.cpp:15-135`): same capabilities — named
 accumulating spans with call counts, named counters, prefix-grouped
 percentage report — plus what the reference cannot do: a roofline ledger
@@ -54,9 +54,10 @@ class _State:
     counters: dict[str, float] = field(default_factory=lambda: collections.defaultdict(float))
     rooflines: dict[str, _RooflineStat] = field(default_factory=lambda: collections.defaultdict(_RooflineStat))
     lock: threading.Lock = field(default_factory=threading.Lock)
-    # peaks for the roofline report; override via set_peaks()
-    peak_hbm_gbs: float = 819.0
-    peak_flops: float = 197e12
+    # peaks for the roofline report (set_peaks / autoset_peaks); None on a
+    # device without a row in utils.device.PEAKS: no share is printed then
+    peak_hbm_gbs: float | None = None
+    peak_flops: float | None = None
     # sampled-synchronous mode: the engine block_until_ready's every Nth
     # dispatched decode program, so span groups measure true device time
     # (async dispatch otherwise makes spans measure queueing only).
@@ -93,10 +94,15 @@ def is_enabled() -> bool:
 
 
 def autoset_peaks() -> None:
-    """Set roofline peaks from the visible accelerator."""
-    from .device import device_peaks
+    """Set roofline peaks from the visible accelerator's row of the peak
+    table; a device without one (the CPU) gets no roofline share."""
+    from .device import UnknownDevice, device_peaks
 
-    hbm, flops = device_peaks()
+    try:
+        hbm, flops = device_peaks()
+    except UnknownDevice:
+        _state.peak_hbm_gbs = _state.peak_flops = None
+        return
     set_peaks(hbm_gbs=hbm, flops=flops)
 
 
@@ -107,11 +113,10 @@ def reset() -> None:
         _state.rooflines.clear()
 
 
-def set_peaks(hbm_gbs: float | None = None, flops: float | None = None) -> None:
-    if hbm_gbs is not None:
-        _state.peak_hbm_gbs = hbm_gbs
-    if flops is not None:
-        _state.peak_flops = flops
+def set_peaks(hbm_gbs: float | None, flops: float | None) -> None:
+    """Roofline peaks (GB/s, FLOP/s); None prints no share."""
+    _state.peak_hbm_gbs = hbm_gbs
+    _state.peak_flops = flops
 
 
 @contextlib.contextmanager
@@ -196,17 +201,21 @@ def report(group_depth: int = 1) -> str:
                 lines.append(f"  {name:<40} {v:g}")
         if _state.rooflines:
             lines.append("== roofline (achieved vs peak) ==")
+            hbm, peak = _state.peak_hbm_gbs, _state.peak_flops
             for name, st in sorted(_state.rooflines.items(), key=lambda kv: -kv[1].total_s):
                 bw = st.bytes_moved / st.total_s / 1e9 if st.total_s else 0.0
                 fl = st.flops / st.total_s / 1e12 if st.total_s else 0.0
-                bw_pct = 100.0 * bw / _state.peak_hbm_gbs
-                fl_pct = 100.0 * fl * 1e12 / _state.peak_flops
-                bound = "BW" if bw_pct >= fl_pct else "FLOP"
-                lines.append(
+                line = (
                     f"  {name:<32} x{st.count:<6d} {st.total_s*1e3:9.2f} ms "
-                    f"{bw:8.1f} GB/s ({bw_pct:5.1f}% peak) "
-                    f"{fl:7.2f} TFLOP/s ({fl_pct:5.1f}% peak) [{bound}-bound]"
+                    f"{bw:8.1f} GB/s {fl:7.2f} TFLOP/s"
                 )
+                if hbm and peak:
+                    bw_pct = 100.0 * bw / hbm
+                    fl_pct = 100.0 * fl * 1e12 / peak
+                    bound = "BW" if bw_pct >= fl_pct else "FLOP"
+                    line += (f" ({bw_pct:5.1f}% / {fl_pct:5.1f}% of peak)"
+                             f" [{bound}-bound]")
+                lines.append(line)
     return "\n".join(lines) if lines else "(profiling: no data)"
 
 

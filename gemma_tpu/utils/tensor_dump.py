@@ -7,8 +7,8 @@ byte-compares them, driven by a dump-list config file. Differences here:
 
 * dumps are ``.npy`` (dtype+shape preserved) instead of raw bytes;
 * comparison is tolerance-aware (`atol`/`rtol` + max/mean error report) —
-  byte-exactness is only achievable for identical arithmetic, which TPU
-  bf16 deliberately is not (SURVEY.md §4 implication);
+  byte-exactness is only achievable for identical arithmetic, which bf16
+  on the accelerator deliberately is not (SURVEY.md §4 implication);
 * the capture hook is first-class: `capture()` opens a context that
   `gemma.forward` (and anything else) reports named activations into,
   filtered by the same `name:tensor` dump-list format the reference uses

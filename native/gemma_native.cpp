@@ -1,7 +1,7 @@
-// gemma_native: host-side native runtime for the TPU engine.
+// gemma_native: host-side native runtime for the inference engine.
 //
 // The reference's runtime substrate is C++ (thread_pool.cpp, the patched
-// ggml loader, hpc.cpp's host orchestration — see SURVEY.md §2). The TPU
+// ggml loader, hpc.cpp's host orchestration — see SURVEY.md §2). This
 // rebuild keeps device compute in XLA/Pallas, but the load-time hot path —
 // decoding multi-GB GGUF block-quant payloads and re-laying them out into
 // the K-major device format of quant/qtensor.py — is pure host work and is
@@ -306,8 +306,8 @@ int gt_dequant(int ggml_type, const uint8_t* raw, int64_t rows, int64_t cols,
 // i.e. out[kg * N + n]. 4-bit payloads are K-paired signed nibbles:
 // byte[k', n] = (v[2k'] & 0xF) | (v[2k'+1] << 4), values pre-biased
 // (q4_0/q4_k store q-8; q6_k stores s4 = (u & 15) - 8 of u = q+32, with
-// the high 2 bits in a separate plane-major qh array), so the Pallas
-// kernel's pltpu.bitcast(u8, int4) restores natural K-order.
+// the high 2 bits in a separate plane-major qh array); the matmul kernel
+// sign-extends each nibble with two shifts.
 // ---------------------------------------------------------------------------
 
 inline uint8_t pack_pair(int v0, int v1) {

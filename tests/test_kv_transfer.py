@@ -66,7 +66,7 @@ def test_serialize_roundtrip_bit_exact(model, kv_quantized):
 
 def _spawn_prefill_worker(gguf_path, extra_args=()):
     env = dict(os.environ)
-    env["GEMMA_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.Popen(
         [sys.executable, "-m", "gemma_tpu.runtime.kv_transfer",
          "--gguf", str(gguf_path), "--port", "0", *extra_args],

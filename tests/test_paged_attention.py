@@ -1,18 +1,15 @@
-"""Paged decode-attention kernel vs the dense XLA reference (interpret)."""
-import os
-
+"""The decode kernel walking a paged pool vs the dense XLA reference
+(interpret mode on the CPU)."""
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-os.environ["GEMMA_TPU_INTERPRET_KERNELS"] = "1"
-
 from gemma_tpu.models.config import GemmaConfig
-from gemma_tpu.ops.attention import sdpa_xla
-from gemma_tpu.ops.paged_attention import (
+from gemma_tpu.ops.attention import (
     paged_decode_attention,
     paged_decode_supported,
+    sdpa_xla,
 )
 from gemma_tpu.runtime.paged_kv import PagedKVCache
 
@@ -65,10 +62,10 @@ CASES = [
 
 @pytest.mark.parametrize("B,Hq,Hkv,D,ps,maxp,n_pages,lengths,softcap,window", CASES)
 def test_paged_matches_dense(B, Hq, Hkv, D, ps, maxp, n_pages, lengths,
-                             softcap, window, rng):
+                             softcap, window, rng, interpret_kernels):
     cache, k_dense, v_dense = make_paged(rng, B, Hkv, D, n_pages, ps, maxp, lengths)
-    assert paged_decode_supported(cache, 1, Hq)
     q = jnp.asarray(rng.normal(size=(B, 1, Hq, D)) * 0.3, jnp.bfloat16)
+    assert paged_decode_supported(cache, q)
     kv_limit = jnp.asarray(lengths, jnp.int32)
     positions = (kv_limit - 1)[:, None]
 
@@ -82,18 +79,33 @@ def test_paged_matches_dense(B, Hq, Hkv, D, ps, maxp, n_pages, lengths,
     np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
 
 
-def test_paged_unsupported_gates():
+def test_paged_unsupported_gates(interpret_kernels):
+    def cache_and_q(D=64, ps=16, T=1, quantized=False):
+        cfg = GemmaConfig(
+            vocab_size=64, d_model=2 * D, n_layers=1, n_heads=2, n_kv_heads=2,
+            head_dim=D, d_ff=64, context_length=64,
+        )
+        cache = PagedKVCache.create(cfg, 1, 5, page_size=ps, max_seq_len=64,
+                                    quantized=quantized)
+        return cache, jnp.zeros((1, T, 2, D), jnp.bfloat16)
+
+    assert paged_decode_supported(*cache_and_q())
+    assert paged_decode_supported(*cache_and_q(quantized=True))  # int8 in place
+    assert not paged_decode_supported(*cache_and_q(T=2))  # not decode
+    assert not paged_decode_supported(*cache_and_q(D=48))  # head_dim not 2^n
+    assert not paged_decode_supported(*cache_and_q(ps=8))  # page below 16 keys
+    cache, q = cache_and_q()
+    assert not paged_decode_supported(cache, q.astype(jnp.float32))
+
+
+def test_paged_plain_without_kernels():
+    """On the CPU without the interpret hook the paged cache densifies."""
     cfg = GemmaConfig(
         vocab_size=64, d_model=128, n_layers=1, n_heads=2, n_kv_heads=2,
         head_dim=64, d_ff=64, context_length=64,
     )
-    cache = PagedKVCache.create(cfg, 1, 4, page_size=16, max_seq_len=64)
-    assert not paged_decode_supported(cache, 2, 2)  # T != 1
-    assert not paged_decode_supported(cache, 1, 2)  # D=64 not lane-aligned
-    qcache = PagedKVCache.create(
-        cfg, 1, 4, page_size=16, max_seq_len=64, quantized=True
-    )
-    assert not paged_decode_supported(qcache, 1, 2)  # D=64 not lane-aligned
+    cache = PagedKVCache.create(cfg, 1, 5, page_size=16, max_seq_len=64)
+    assert not paged_decode_supported(cache, jnp.zeros((1, 1, 2, 64), jnp.bfloat16))
 
 
 def quantize_rows(x):
@@ -110,7 +122,7 @@ def quantize_rows(x):
     (2, [17, 128], 0.0, 0),
     (1, [100], 30.0, 32),
 ])
-def test_paged_int8_matches_dense(B, lengths, softcap, window, rng):
+def test_paged_int8_matches_dense(B, lengths, softcap, window, rng, interpret_kernels):
     """int8 pages read in place by the kernel vs the dequantized XLA path."""
     Hq, Hkv, D, ps, maxp, n_pages = 8, 2, 128, 16, 8, 24
     cache, k_dense, v_dense = make_paged(rng, B, Hkv, D, n_pages, ps, maxp, lengths)
@@ -123,8 +135,8 @@ def test_paged_int8_matches_dense(B, lengths, softcap, window, rng):
         page_table=cache.page_table, length=cache.length,
         k_scale=(jnp.asarray(sk[0]),), v_scale=(jnp.asarray(sv[0]),),
     )
-    assert qcache.quantized and paged_decode_supported(qcache, 1, Hq)
     q = jnp.asarray(rng.normal(size=(B, 1, Hq, D)) * 0.3, jnp.bfloat16)
+    assert qcache.quantized and paged_decode_supported(qcache, q)
     kv_limit = jnp.asarray(lengths, jnp.int32)
     positions = (kv_limit - 1)[:, None]
 

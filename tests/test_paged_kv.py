@@ -139,20 +139,11 @@ def test_paged_int8_kv(model):
 
 
 def test_auto_page_size(model):
-    """Geometry-aware default (VERDICT r4 #7): page_size=None resolves from
-    (Hkv, max_seq_len) per BENCHMARKS.md — 256 for MQA long-context (2B@8K
-    ps=64 measured 0.84x dense vs 0.92x at ps=256), 64 everywhere else."""
-    from gemma_tpu.models import GEMMA_2B, GEMMA_7B
-
-    assert Engine._auto_page_size(GEMMA_2B, EngineConfig(max_seq_len=8192)) == 256
-    assert Engine._auto_page_size(GEMMA_2B, EngineConfig(max_seq_len=2048)) == 256
-    assert Engine._auto_page_size(GEMMA_2B, EngineConfig(max_seq_len=512)) == 64
-    assert Engine._auto_page_size(GEMMA_7B, EngineConfig(max_seq_len=8192)) == 64
-    # int8 pages measured the opposite MQA preference (BENCHMARKS round 5)
-    assert Engine._auto_page_size(
-        GEMMA_2B, EngineConfig(max_seq_len=8192, kv_quantized=True)
-    ) == 64
-    # Engine.__init__ resolves None in place; explicit values pass through
+    """One default page size for every geometry: one page is one block of
+    the decode kernel, which wants a power of two of at least 16 keys;
+    explicit values pass through."""
+    ps = EngineConfig().page_size
+    assert ps == 64 and ps & (ps - 1) == 0 and ps >= 16
     cfg, params = model
     eng = Engine(cfg, params, EngineConfig(max_seq_len=64, paged=True))
     assert eng.ecfg.page_size == 64

@@ -3,7 +3,6 @@ reference (bit-exact in f32, up to the bf16 output cast)."""
 import numpy as np
 import pytest
 
-from gemma_tpu.gguf import GGMLType
 from gemma_tpu.quant import numpy_ref
 from gemma_tpu.quant.qtensor import GGML_TO_FMT, dequant, from_ggml, quantize_array
 
@@ -28,30 +27,6 @@ def test_device_dequant_matches_reference(fmt, rng):
     # and the bf16 scale grid is DETERMINISTIC: re-converting is bit-equal
     qt2 = from_ggml(raw, ggml_type, shape)
     np.testing.assert_array_equal(dev, np.asarray(dequant(qt2, dtype=np.float32)))
-
-
-def test_q6k_deep_k_selects_int8_layout(rng, monkeypatch):
-    """With GEMMA_TPU_Q6K_DEEPK set, Q6_K layout is per-tensor-shape
-    (qtensor.from_ggml): deep-K tensors keep the int8 payload variant
-    ("q6_k_v4"), shallow-K the split-plane "q6_k" — both must dequantize
-    to the same ggml reference."""
-    monkeypatch.setenv("GEMMA_TPU_Q6K_DEEPK", "8192")
-    shape = (4, 8192)
-    x = rng.normal(size=shape).astype(np.float32)
-    raw = numpy_ref.quantize(x, GGMLType.Q6_K)
-    ref = numpy_ref.dequantize(raw, GGMLType.Q6_K, shape)
-    qt = from_ggml(raw, GGMLType.Q6_K, shape)
-    assert qt.fmt == "q6_k_v4" and set(qt.arrays) == {"qs", "sc8", "d"}
-    assert qt.shape == shape
-    dev = np.asarray(dequant(qt, dtype=np.float32))
-    np.testing.assert_allclose(dev, ref, rtol=5e-3, atol=5e-3 * np.abs(ref).max())
-    # same payload through the shallow-K (split-plane) packer: identical
-    from gemma_tpu.quant.qtensor import QTensor, pack_q6_k
-
-    qt5 = QTensor("q6_k", pack_q6_k(raw, shape))
-    np.testing.assert_array_equal(
-        dev, np.asarray(dequant(qt5, dtype=np.float32))
-    )
 
 
 def test_quantize_array_roundtrip(rng):

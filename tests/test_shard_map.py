@@ -1,7 +1,5 @@
 """Explicit-collectives TP (shard_map) vs the single-device engine, and
 Pallas quant_matmul composing with shard-local weights (no all-gather)."""
-import os
-
 import numpy as np
 import pytest
 
@@ -53,15 +51,14 @@ def test_local_config_geometry():
     assert lc4.n_heads == 1 and lc4.n_kv_heads == 1
 
 
-def test_quant_matmul_composes_with_shard_map(rng):
+def test_quant_matmul_composes_with_shard_map(rng, interpret_kernels):
     """The Pallas kernel must run on the shard-LOCAL QTensor under
     shard_map — each shard sees N/tp out-features (no full-weight
     all-gather), and the stitched result matches the dense product."""
-    os.environ["GEMMA_TPU_INTERPRET_KERNELS"] = "1"
     from gemma_tpu.ops.quant_matmul import quant_matmul, supports
     from gemma_tpu.quant.qtensor import QTensor, dequant, quantize_array
 
-    N, K, M = 1024, 512, 8  # K: bf16 scale tiles need a 512-multiple bk
+    N, K, M = 1024, 512, 8  # shards of 128 columns: whole 64-column slabs
     mesh = make_mesh(1, 8)
     w = rng.normal(size=(N, K)).astype(np.float32) * 0.1
     qt = quantize_array(w, "q4_0")
@@ -75,7 +72,7 @@ def test_quant_matmul_composes_with_shard_map(rng):
 
     def local_fn(x, qtl):
         assert qtl.shape == (N // 8, K)  # trace-time proof: shard-local view
-        assert supports(x.shape, qtl)  # Pallas path, not the XLA fallback
+        assert supports(x.shape, qtl)  # kernel path, not the plain one
         return quant_matmul(x, qtl)
 
     fn = jax.jit(

@@ -39,8 +39,12 @@ def test_profiling_spans_and_report():
         time.sleep(0.002)
     profiling.add_count("tokens", 42)
     profiling.roofline("q4_0", seconds=0.001, bytes_moved=800_000_000, flops=10**9)
-    rep = profiling.report()
-    profiling.disable()
+    profiling.set_peaks(hbm_gbs=3350.0, flops=989e12)
+    try:
+        rep = profiling.report()
+    finally:
+        profiling.set_peaks(None, None)
+        profiling.disable()
     assert "op.mul_mat" in rep and "x2" in rep
     assert "tokens" in rep and "42" in rep
     assert "q4_0" in rep and "GB/s" in rep and "BW-bound" in rep
@@ -205,11 +209,8 @@ def test_delta_ppl_gate_vs_ggml_reference(tmp_path):
         assert abs(ppl_engine - ppl_ref) <= 4e-3 * ppl_ref, (gtype, ppl_engine, ppl_ref)
 
 
-def test_verify_device_kernels(tmp_path):
-    """Kernel-vs-XLA on-device verification (interpret mode on CPU)."""
-    import os
-
-    os.environ["GEMMA_TPU_INTERPRET_KERNELS"] = "1"
+def test_verify_device_kernels(tmp_path, interpret_kernels):
+    """Kernel-vs-plain on-device verification (interpret mode on CPU)."""
     from gemma_tpu.gguf import GGMLType, GGUFReader
     from gemma_tpu.models.params import load_params
     from gemma_tpu.testing import TINY_CONFIG, make_gguf

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Compare host-chained decode dispatch vs device-side lax.scan multi-step.
 
-The engine docstring records scan as much slower (Pallas pipeline warmup
-serialization); re-measure at current kernel shapes to decide the
+Measures whether a device-side scan of decode steps beats the engine's
+host-chained dispatch at current kernel shapes, to decide the
 generate_fused strategy."""
 import os
 import sys

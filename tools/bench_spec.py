@@ -32,7 +32,7 @@ setup_compile_cache()
 
 def measure(fn, n_tokens, reps=5):
     # MEDIAN of marginals: a min is biased UP when the short run hiccups
-    # (observed: a 825 tok/s "plain" reading on a 580 tok/s-roofline model)
+    # (a hiccup in the short run inflates the marginal rate)
     ds = []
     out2 = None
     for _ in range(reps):

@@ -52,7 +52,7 @@ CFG = GemmaConfig(
     vocab_size=2048, d_model=512, n_layers=4, n_heads=8, n_kv_heads=2,
     head_dim=64, d_ff=1024, context_length=512,
 )
-# --large (VERDICT r3 #8): ~325M params + a 4K corpus, so K-quant scale
+# --large: ~325M params + a 4K corpus, so K-quant scale
 # bugs with small per-weight signatures have statistical room to show.
 # Run: JAX_PLATFORMS=cpu python tools/ppl_gate.py --large  (~30-60 min on
 # a 2-core host; results recorded in PARITY.md).
@@ -138,7 +138,7 @@ def main() -> None:
     # random-init 325M model whose absolute ppl is ~10^4 (run on
     # 2026-08-21: q4_0 39291, q4_k 36857), where a 0.05 absolute bound is
     # six orders below the ppl scale and meaningless; the run's purpose is
-    # giving K-quant scale bugs statistical room (VERDICT r3 #8) — the
+    # giving K-quant scale bugs statistical room — the
     # measured K-quant relative deltas were ~1e-6 (bit-exact dequant,
     # f32-summation-order residual only) and q4_0/q8_0 sat at the same
     # ~2e-3 as the pure-bf16-cast f32 row. The absolute 0.05 criterion

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Profile the batched speculative serving tick (round 5).
+"""Profile the batched speculative serving tick.
 
-bench_serving --speculative measured ~155 ms per spec tick against a
-~2.5 ms plain block step — ~20x more than the verify forward itself can
-cost. This probe separates, with host-side wall timing over a steady
+Where a speculative tick costs far more than its verify forward, this
+probe says where the time goes, with host-side wall timing over a steady
 active batch (no admissions mid-loop):
 
   issue    _spec_issue dispatch time (no sync)
